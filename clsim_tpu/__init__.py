@@ -1,8 +1,8 @@
-"""clsim_tpu: a TPU-native (JAX/XLA/Pallas) differentiable photon-propagation
-framework with the capabilities of clsim (IceCube's OpenCL photon tracker).
+"""clsim_tpu: a JAX differentiable photon-propagation framework with the
+capabilities of clsim (IceCube's OpenCL photon tracker).
 
 See SURVEY.md at the repository root for the structural map of the reference
-this framework re-implements TPU-first.
+this framework re-implements.
 """
 
 __version__ = "0.1.0"

@@ -52,13 +52,9 @@ class Simulation:
                  use_cascade_extension: bool = True,
                  flasher_spectra: Sequence[WavelengthSpectrum] = (),
                  mesh=None,
-                 backend: str = "auto",
-                 interpret: bool = False,
-                 fused_opts: Optional[dict] = None,
                  propagators: Sequence = None):
         self.medium = medium
         self.geometry = geometry
-        self.backend = backend
         cfg = config or PropagationConfig()
         if cfg.pancake_factor == 1.0 and geometry.oversize != 1.0:
             cfg = dataclasses.replace(cfg, pancake_factor=geometry.oversize)
@@ -121,19 +117,11 @@ class Simulation:
 
         self._propagate = None
         if mesh is not None:
-            # the sharded product path serves the FUSED kernel whenever the
-            # configuration supports it -- the reference's scale-out fans
-            # steps to the *compiled* converters (I3CLSimServer.cxx:163-370),
-            # never to a slow fallback.  medium/geo/spectra are all known
-            # here, so pass them through for fused plan/spec construction;
-            # make_sharded_propagate records backend/backend_reason.
+            # scale-out: the reference fans steps out to its converters
+            # (I3CLSimServer.cxx:163-370); here one SPMD program shards the
+            # slots over the mesh and psums the histograms
             from .parallel.mesh import make_sharded_propagate
-            fopts = dict(fused_opts or {})
-            max_calls = fopts.pop("max_calls", 256)
-            self._propagate = make_sharded_propagate(
-                mesh, self.config, backend=self.backend,
-                medium=self.medium, geo=self.geometry, spectra=self.spectra,
-                interpret=interpret, max_calls=max_calls, **fopts)
+            self._propagate = make_sharded_propagate(mesh, self.config)
 
     # ------------------------------------------------------------------
     def steps_from_particles(self, particles: Sequence[Particle],
@@ -168,27 +156,17 @@ class Simulation:
                                       self.spectra, bkey)
             else:
                 res = propagate_auto(batch, self.medium, self.geometry,
-                                     self.spectra, bkey, self.config,
-                                     backend=self.backend)
+                                     self.spectra, bkey, self.config)
             if total is None:
                 total = res
             else:
-                dt = (total.diag_totals + res.diag_totals
-                      if total.diag_totals is not None
-                      and res.diag_totals is not None else res.diag_totals)
                 total = PropagationResult(
                     hist=total.hist + res.hist,
                     n_generated=total.n_generated + res.n_generated,
                     n_hits=total.n_hits + res.n_hits,
                     weight_hits=total.weight_hits + res.weight_hits,
                     n_iterations=total.n_iterations + res.n_iterations,
-                    rec_count=res.rec_count, rec=res.rec,
-                    diag_totals=dt)
-        if total is not None and total.diag_totals is not None:
-            # surface dropped/abandoned counts (warns on loss); syncs, but
-            # run_steps is the collection point anyway
-            from .propagate.dispatch import check_diagnostics
-            check_diagnostics(total)
+                    rec_count=res.rec_count, rec=res.rec)
         return total
 
     def simulate(self, particles: Sequence[Particle], seed: int

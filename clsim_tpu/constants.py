@@ -1,6 +1,6 @@
 """Physical constants and unit conventions.
 
-Unit system (differs from IceTray's I3Units, chosen for fp32 friendliness on TPU):
+Unit system (differs from IceTray's I3Units, chosen for fp32 friendliness):
   * length  : meters
   * time    : nanoseconds
   * energy  : GeV

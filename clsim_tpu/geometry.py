@@ -1,7 +1,7 @@
 """Detector geometry: DOM positions plus the precomputed culling tables used
 by the collision test.
 
-TPU-native replacement for the reference's geometry codegen
+Replacement for the reference's geometry codegen
 (private/opencl/I3CLSimHelperGenerateGeometrySource.cxx): instead of emitting
 OpenCL source with baked-in constants and per-stringset tables, we build dense
 jnp arrays once on the host:
@@ -14,8 +14,7 @@ jnp arrays once on the host:
 
 The reference's 2-D cell grid (x,y)->string index is replaced by a dense
 all-strings 2-D cull + top-K nearest-string selection in the engine: with
-<=~100 strings this is pure vector math with no gather indirection, which is
-the better trade on TPU.
+<=~100 strings this is pure vector math with no per-lane indirection.
 """
 
 from __future__ import annotations
@@ -53,18 +52,16 @@ class DetectorGeometry(NamedTuple):
     layer_to_dom: jnp.ndarray    # (S, L) int32
 
     # dense per-string DOM slots (S, M, 4): x, y, z, flat index (-1 empty).
-    # fetched per photon with one one-hot matmul -- TPUs have no fast
-    # gather, so the collision path tests all M slots of the top-K culled
-    # strings instead of walking z-layers (see propagate/engine.py)
+    # the collision path tests all M slots of the top-K culled strings
+    # instead of walking z-layers (see propagate/engine.py)
     string_dom_table: jnp.ndarray
 
-    # precision-split collision tables (the MXU rounds float matmul outputs
-    # to bfloat16, so absolute positions cannot ride a float one-hot fetch):
+    # collision tables, split into a per-string frame and small residuals:
     #  * string_features (S, 8): x, y, min_z, max_z, z0_fit, dz_fit,
-    #    dom_offset, n_doms -- fetched bit-exactly via byte-split int8 matmul
+    #    dom_offset, n_doms -- fetched with ops.lookup.select_rows_exact
     #  * string_dom_rel (S, M, 4): dx, dy, dz residuals vs the string
-    #    position / fitted z grid (|res| ~ meters -> bf16 fetch error ~cm)
-    #    and a validity flag; flat DOM index = dom_offset + slot
+    #    position / fitted z grid and a validity flag, fetched with
+    #    ops.lookup.onehot_gather; flat DOM index = dom_offset + slot
     string_features: jnp.ndarray
     string_dom_rel: jnp.ndarray
 

@@ -1,6 +1,6 @@
 """Photon -> MCPE (photoelectron hit) conversion.
 
-TPU-native equivalent of I3PhotonToMCPEConverter
+Equivalent of I3PhotonToMCPEConverter
 (private/clsim/dom/I3PhotonToMCPEConverter.cxx:330-510):
 
   hitProbability = photon.weight

@@ -1,7 +1,7 @@
 """Spice-Lea ice anisotropy: directional absorption scaling and pre/post
 scatter direction distortion transforms.
 
-TPU-native equivalent of the reference's
+Equivalent of the reference's
 I3CLSimScalarFieldAnisotropyAbsLenScaling (private/clsim/function/
 I3CLSimScalarFieldAnisotropyAbsLenScaling.cxx:63-90) and the matrix
 transforms built by python/util/GetSpiceLeaAnisotropyTransforms.py:38-100.

@@ -1,6 +1,6 @@
 """Wavelength-dependent optical property functions.
 
-These are the TPU-native equivalents of the reference's dual C++/OpenCL
+These are the equivalents of the reference's dual C++/OpenCL
 ``I3CLSimFunction`` objects (reference public/clsim/function/I3CLSimFunction.h).
 Instead of codegen-into-OpenCL-strings, each model is a pure jnp function of
 (params, wavelength) where params is a pytree of (potentially per-layer,
@@ -67,7 +67,7 @@ def abs_separable_coeffs(kappa, A, B, D, E, wlen_nm):
                            + ra(lambda)*delta_tau[layer]
 
     This rank-structure is what makes the layered-ice optical-depth walk a
-    prefix-sum problem on TPU (see propagate/engine.py) instead of the
+    fixed-trip vector loop (see propagate/engine.py) instead of the
     reference's per-layer while loop (propagation_kernel.c.cl:646-676).
     """
     x = jnp.asarray(wlen_nm)
@@ -120,7 +120,7 @@ class RefIndexParams(NamedTuple):
 #  the standard "SPICE" dispersion parameterization).
 # numpy, NOT jnp: module-scope device arrays would initialize the XLA
 # backend at `import clsim_tpu`, which breaks jax.distributed.initialize
-# on a multi-host pod (it must run before any backend touch)
+# on a multi-host cluster (it must run before any backend touch)
 DEFAULT_ICE_REF_INDEX = RefIndexParams(
     n=np.array([1.55749, -1.57988, 3.99993, -4.68271, 2.09354], np.float32),
     g=np.array([1.227106, -0.954648, 1.42568, -0.711832, 0.0], np.float32),

@@ -1,6 +1,6 @@
 """Photonics-format ice table parser.
 
-TPU-native equivalent of the reference's MakeIceCubeMediumPropertiesPhotonics
+Equivalent of the reference's MakeIceCubeMediumPropertiesPhotonics
 (python/MakeIceCubeMediumPropertiesPhotonics.py:46-227).  The file format:
 
   NLAYER <n>

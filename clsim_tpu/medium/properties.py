@@ -1,7 +1,7 @@
 """The medium-property container: layered ice (or single-layer water) with
 differentiable per-layer parameters.
 
-TPU-native equivalent of the reference's I3CLSimMediumProperties
+Equivalent of the reference's I3CLSimMediumProperties
 (public/clsim/I3CLSimMediumProperties.h:51-135).  Instead of holding abstract
 function objects that emit OpenCL code, this is a flat pytree of parameter
 leaves; the propagation engine evaluates the closed-form property functions
@@ -117,7 +117,7 @@ class MediumProperties(NamedTuple):
         return self.layers_z_start + layer.astype(jnp.float32) * self.layer_height
 
     def _water_table(self, table, wlen_nm):
-        """Uniform-grid table eval via one-hot matmul (TPU: no gathers)."""
+        """Uniform-grid table eval via ops.lookup.onehot_gather."""
         from ..ops.lookup import onehot_gather
         nw = table.shape[0]
         xi = (wlen_nm - self.water_wlen_first) / self.water_wlen_step

@@ -1,6 +1,6 @@
 """Ice-layer tilt: z-shift scalar field over (distance-along-tilt-azimuth, z).
 
-TPU-native equivalent of the reference's I3CLSimScalarFieldIceTiltZShift
+Equivalent of the reference's I3CLSimScalarFieldIceTiltZShift
 (private/clsim/function/I3CLSimScalarFieldIceTiltZShift.cxx:145-285, data
 loading python/util/GetIceTiltZShift.py:40-61).  The photon's effective z for
 medium-layer lookup is z - tilt_z_shift(x, y, z).
@@ -51,8 +51,8 @@ def tilt_z_shift(p: TiltParams, x, y, z):
     # first j in [1, nd-1] with nr < distances[j], else nd-1
     j = jnp.clip(jnp.searchsorted(p.distances, nr, side="right"), 1, nd - 1)
 
-    # fetch the four bilinear corners + the distance pair in one one-hot
-    # matmul over the (nd-1)*(nz-1) cell table (no per-lane gathers on TPU)
+    # fetch the four bilinear corners + the distance pair in one lookup
+    # over the (nd-1)*(nz-1) cell table
     zc = p.z_corrections
     cell = jnp.stack([
         jnp.repeat(p.distances[:-1], nz - 1),

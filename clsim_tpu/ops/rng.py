@@ -2,7 +2,7 @@
 
 The reference uses a per-work-item multiply-with-carry stream seeded from a
 safeprimes file (resources/kernels/mwcrng_kernel.cl, private/opencl/
-mwcrng_init.h).  The TPU build replaces this with JAX's counter-based
+mwcrng_init.h).  This package replaces it with JAX's counter-based
 threefry: a single base key, folded with structured counters, gives every
 (batch, iteration, purpose) its own independent stream with no state to
 store or restore -- and, crucially, samples that do not depend on the medium
@@ -31,7 +31,7 @@ def uniforms(key: jax.Array, shape, n: int):
 
     Returns an array u of shape (n,) + shape; u[i] plays the role of the
     reference's i-th RNG_CALL in the loop body.  Sampling all blocks at once
-    keeps the TPU vector units busy instead of serializing tiny draws.
+    issues one wide draw instead of many tiny ones.
     """
     return jax.random.uniform(key, (n,) + tuple(shape), dtype=jnp.float32)
 

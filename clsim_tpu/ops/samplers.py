@@ -1,6 +1,6 @@
 """Reparameterized random-value samplers.
 
-TPU-native equivalents of the reference's I3CLSimRandomValue hierarchy
+Equivalents of the reference's I3CLSimRandomValue hierarchy
 (public/clsim/random_value/*.h).  Every sampler is an inverse-CDF transform
 of a uniform variate, so gradients flow from the sample to the distribution
 parameters (the counter-based-RNG reparameterization the BASELINE north star
@@ -122,8 +122,9 @@ def sample_interpolated_dist(tables, u):
 
 
 def sample_interpolated_fast(x, acu, beta, u):
-    """Gather-free (one-hot matmul) version of sample_interpolated_dist for
-    use inside the TPU propagation loop; identical math."""
+    """sample_interpolated_dist with the segment coefficients fetched by
+    ops.lookup.onehot_gather, for use inside the propagation loop;
+    identical math."""
     from .lookup import onehot_gather
     n = x.shape[0]
     k = jnp.clip(jnp.sum((acu <= u[..., None]).astype(jnp.int32), axis=-1) - 1,

@@ -162,7 +162,7 @@ def stack_spectra(spectra) -> SpectrumTable:
 def sample_wavelength_dispatch(table: SpectrumTable, source_type, u):
     """Sample lambda for per-photon source types (0=Cherenkov, >=1 flasher).
 
-    Gather-free TPU path: the segment index within each spectrum comes from a
+    The segment index within each spectrum comes from a
     dense CDF comparison; the per-segment coefficients (x0, x1, beta0, beta1,
     acu0) come from one one-hot matmul over the stacked
     (n_spectra * (n-1), 5) coefficient table (see ops/lookup.py)."""

@@ -1,14 +1,13 @@
 """Multi-host bootstrap: one SPMD job replaces the reference's ZMQ
 client/server stack (private/clsim/I3CLSimServer.cxx:81-370).
 
-On a TPU pod each host runs the SAME program; `initialize_distributed`
-wires the hosts into one JAX runtime (coordinator discovery via standard
-cluster env vars, explicit arguments for bare-metal setups) and
-`global_photon_mesh` builds the photon-sharded mesh over every chip of
-every host.  Hit histograms / ice-parameter gradients then combine with a
-single psum over ICI (intra-slice) and DCN (cross-slice) -- there is no
-message-routing layer to maintain and no M:N batching handshake: the mesh
-IS the fan-out.
+On a multi-host cluster each host runs the SAME program;
+`initialize_distributed` wires the hosts into one JAX runtime (coordinator
+discovery via standard cluster env vars, explicit arguments for bare-metal
+setups) and `global_photon_mesh` builds the photon-sharded mesh over every
+device of every host.  Hit histograms / ice-parameter gradients then combine
+with a single psum -- there is no message-routing layer to maintain and no
+M:N batching handshake: the mesh IS the fan-out.
 """
 
 from __future__ import annotations
@@ -27,16 +26,15 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> bool:
     """Initialize jax.distributed for a multi-host run.
 
-    With no arguments, relies on JAX's cluster auto-detection (TPU pod
-    metadata, SLURM, Open MPI); pass explicit values for bare-metal
-    clusters.  Returns True when a multi-process runtime was initialized,
+    With no arguments, relies on JAX's cluster auto-detection
+    (COORDINATOR_ADDRESS, SLURM, Open MPI); pass explicit values for
+    bare-metal clusters.  Returns True when a multi-process runtime was initialized,
     False for single-process runs (harmless no-op, so the same script works
     on one host and on a pod).
     """
     explicit = coordinator_address is not None
     auto = any(v in os.environ for v in (
-        "COORDINATOR_ADDRESS", "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE",
-        "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS"))
+        "COORDINATOR_ADDRESS", "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE"))
     if not explicit and not auto:
         return False
     jax.distributed.initialize(coordinator_address=coordinator_address,

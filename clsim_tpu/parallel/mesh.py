@@ -4,14 +4,15 @@ This replaces the reference's entire distributed stack -- the ZMQ
 client/server (private/clsim/I3CLSimServer.cxx), the multi-GPU round-robin
 fan-out (I3CLSimModule.cxx:611-636) and the per-device host threads -- with a
 single SPMD program: the step batch is sharded along a "photons" mesh axis,
-every chip propagates its shard independently (zero communication in the hot
-loop), and the per-DOM hit-time histograms (and, in the fit path, the
-ice-parameter gradients) are combined with a single psum over ICI/DCN.
+every device propagates its shard independently (zero communication in the
+hot loop), and the per-DOM hit-time histograms (and, in the fit path, the
+ice-parameter gradients) are combined with a single psum.  The cards of one
+host are joined all to all (NVLink), so the mesh is one flat "photons" axis
+shaped by the algorithm alone.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import jax
@@ -34,147 +35,29 @@ def make_mesh(devices=None, axis: str = PHOTON_AXIS) -> Mesh:
 
 
 def make_sharded_propagate(mesh: Mesh, cfg: PropagationConfig,
-                           axis: str = PHOTON_AXIS, backend: str = "auto",
-                           medium: Optional[MediumProperties] = None,
-                           geo: Optional[DetectorGeometry] = None,
-                           spectra: Optional[SpectrumTable] = None,
-                           interpret: bool = False, max_calls: int = 256,
-                           with_uniforms: bool = False, **fused_opts):
+                           axis: str = PHOTON_AXIS):
     """Build a jitted SPMD propagate: steps sharded over `axis`, histograms
     psum-reduced, result replicated.
 
-    The production path routes each shard through the fused Pallas kernel
-    (the same fast converter scale-out exists for in the reference:
-    I3CLSimServer.cxx:163-370 fans steps out to the *compiled OpenCL*
-    converters, not a slow fallback).  Selecting the fused path needs the
-    concrete `medium`/`geo`/`spectra` at build time (the collision-plan and
-    kernel-spec construction is host-side numpy); when they are omitted or
-    the configuration is unsupported, backend="auto" falls back to the JAX
-    engine.  backend="engine" forces the fallback; backend="fused" raises
-    when unsupported.
-
-    `with_uniforms` builds the parity-test variant: the returned callable
-    takes one extra packed-uniform-stream argument (produced by its
-    `.layout_uniforms` attribute from a (T, 8, n_total) array), runs exactly
-    one kernel call, and consumes those uniforms instead of the on-core
-    PRNG -- the sharded analogue of propagate_fused(uniforms=...).
-
-    The per-shard RNG seed/key is decorrelated with the device index, so the
+    The per-shard RNG key is decorrelated with the device index, so the
     result is deterministic for a fixed (key, mesh size) regardless of how
     the steps were produced.
     """
-    use_fused = False
-    reason = None
-    if backend != "engine":
-        if geo is None or medium is None or spectra is None:
-            # partial build-time args: fall back to the engine with a
-            # recorded reason instead of AttributeError-ing inside
-            # fused_supported (docstring contract)
-            reason = "build-time medium/geo/spectra not provided"
-        else:
-            from ..propagate.dispatch import backend_reason
-            reason = backend_reason(medium, spectra, cfg, cfg.n_slots,
-                                    interpret=interpret)
-            if reason is None:
-                use_fused = True
-    if backend == "fused" and not use_fused:
-        raise ValueError("sharded fused path unsupported: "
-                         f"{reason or 'build-time medium/geo/spectra needed'}")
-
-    if not use_fused:
-        def _shard_body(steps, medium, geo, spectra, key):
-            key = jax.random.fold_in(key, jax.lax.axis_index(axis))
-            res = propagate(steps, medium, geo, spectra, key, cfg)
-            return PropagationResult(
-                hist=jax.lax.psum(res.hist, axis),
-                n_generated=jax.lax.psum(res.n_generated, axis),
-                n_hits=jax.lax.psum(res.n_hits, axis),
-                weight_hits=jax.lax.psum(res.weight_hits, axis),
-                n_iterations=jax.lax.pmax(res.n_iterations, axis))
-
-        sharded = jax.shard_map(
-            _shard_body, mesh=mesh,
-            in_specs=(P(axis), P(), P(), P(), P()),
-            out_specs=P(), check_vma=False)
-        fn = jax.jit(sharded)
-
-        def run(*args):
-            return fn(*args)
-        run.backend = "engine"
-        run.backend_reason = reason
-        return run
-
-    # ---- fused shard body -------------------------------------------------
-    from ..propagate import kernel as FK
-    from ..propagate.dispatch import _pick_block_lanes
-
-    block_lanes = fused_opts.pop("block_lanes", None) or \
-        _pick_block_lanes(cfg.n_slots)
-    iters_per_call = fused_opts.pop("iters_per_call", 256)
-    flush_every = fused_opts.pop("flush_every", 16)
-    queue_rows = fused_opts.pop("queue_rows", 32)
-    splits = fused_opts.pop("splits", 2)
-    spawn_every = 1 if with_uniforms else fused_opts.pop("spawn_every", 4)
-    scatter_cap = fused_opts.pop("scatter_cap", 8192)
-    repack = (not with_uniforms) and fused_opts.pop("repack", True)
-    if fused_opts:
-        raise TypeError(f"unknown fused options: {sorted(fused_opts)}")
-    if iters_per_call % flush_every:
-        raise ValueError("iters_per_call must be a multiple of flush_every")
-
-    cell_tab_np, plan = FK.plan_collision(geo, cfg)
-    spec = FK._build_spec(medium, geo, spectra, cfg, cfg.n_slots,
-                          iters_per_call, flush_every, queue_rows,
-                          block_lanes, splits, with_uniforms, interpret,
-                          spawn_every=spawn_every, plan=plan)
-    cell_tab = jnp.asarray(cell_tab_np)
-    mc = 1 if with_uniforms else max_calls
-
-    def _shard_body(steps, medium_t, geo_t, spectra_t, key, *maybe_u):
-        di = jax.lax.axis_index(axis)
-        ku = jnp.asarray(key).reshape(-1).astype(jnp.uint32)
-        seed = ((ku[-1] ^ (ku[0] << 16))
-                & jnp.uint32(0x7fffffff)).astype(jnp.int32)
-        seed = seed + di.astype(jnp.int32) * 1000003
-        res, totals = FK._run_fused(
-            steps, medium_t, geo_t, spectra_t, seed, cfg, spec, mc,
-            scatter_cap, cell_tab=cell_tab,
-            uniforms=maybe_u[0] if with_uniforms else None,
-            repack=repack, balance=False)
+    def _shard_body(steps, medium, geo, spectra, key):
+        key = jax.random.fold_in(key, jax.lax.axis_index(axis))
+        res = propagate(steps, medium, geo, spectra, key, cfg)
         return PropagationResult(
             hist=jax.lax.psum(res.hist, axis),
             n_generated=jax.lax.psum(res.n_generated, axis),
             n_hits=jax.lax.psum(res.n_hits, axis),
             weight_hits=jax.lax.psum(res.weight_hits, axis),
-            n_iterations=jax.lax.pmax(res.n_iterations, axis),
-            diag_totals=jax.lax.psum(totals, axis))
+            n_iterations=jax.lax.pmax(res.n_iterations, axis))
 
-    in_specs = (P(axis), P(), P(), P(), P()) + \
-        ((P(axis),) if with_uniforms else ())
     sharded = jax.shard_map(
-        _shard_body, mesh=mesh, in_specs=in_specs,
+        _shard_body, mesh=mesh,
+        in_specs=(P(axis), P(), P(), P(), P()),
         out_specs=P(), check_vma=False)
-    fn = jax.jit(sharded)
-
-    n_dev = int(np.prod(mesh.devices.shape))
-
-    def layout_uniforms(uniforms):
-        """(T, 8, n_total) -> packed + device-order-concatenated stream for
-        the extra argument (shard d's lanes read the same uniform values the
-        unsharded run's lanes [d*per:(d+1)*per] would)."""
-        u = jnp.asarray(uniforms, jnp.float32)
-        per = u.shape[2] // n_dev
-        chunks = [FK._layout_uniforms(u[:, :, d * per:(d + 1) * per], spec)
-                  for d in range(n_dev)]
-        return jnp.concatenate(chunks, axis=0)
-
-    def run(*args):
-        return fn(*args)
-    run.backend = "fused"
-    run.backend_reason = None
-    run.spec = spec
-    run.layout_uniforms = layout_uniforms
-    return run
+    return jax.jit(sharded)
 
 
 def shard_steps(batch: StepBatch, mesh: Mesh, axis: str = PHOTON_AXIS) -> StepBatch:
@@ -204,16 +87,13 @@ class IceFit:
     def __init__(self, mesh: Mesh, cfg: PropagationConfig,
                  geo: DetectorGeometry, spectra: SpectrumTable,
                  learning_rate: float = 1e-3, axis: str = PHOTON_AXIS,
-                 max_iterations: int = 64, forward: str = "engine",
-                 interpret: bool = False,
+                 max_iterations: int = 64,
                  score_function: Optional[bool] = None,
-                 bwd_fraction: float = 1.0,
                  optimizer=None, param_transform=None,
                  loss: str = "chi2", two_sample: bool = False):
-        """forward='fused' routes the loss's forward pass through the fused
-        Pallas expected-estimator kernel (propagate/diff.py) -- the engine
-        serves only the VJP.  `interpret` runs the kernel in interpreter
-        mode (CPU tests / dryruns).  `score_function` adds the
+        """The loss's forward pass is the engine's expected estimator over a
+        bounded, reverse-differentiable loop of `max_iterations`; its
+        gradient is engine AD.  `score_function` adds the
         likelihood-ratio term so scattering-parameter gradients are
         unbiased (types.PropagationConfig.score_function; costs sampling
         variance, use larger photon batches per step).  The default (None)
@@ -221,9 +101,7 @@ class IceFit:
         contains a scattering parameter (SCATTERING_FIT_PARAMS), OFF for
         absorption-only fits; passing score_function=False while fitting
         scattering parameters emits a loud warning (the detached estimator
-        has the wrong sign there).  `bwd_fraction < 1` runs the engine-AD
-        backward on a RANDOM slot subsample (unbiased minibatch gradient,
-        diff.py) -- fit-step cost approaches one fused forward.
+        has the wrong sign there).
 
         `optimizer`: None for plain SGD with `learning_rate`, or any optax
         GradientTransformation (e.g. optax.adam(1e-2)); its state is
@@ -256,9 +134,6 @@ class IceFit:
         self.geo = geo
         self.spectra = spectra
         self.lr = learning_rate
-        self.forward = forward
-        self.interpret = interpret
-        self.bwd_fraction = bwd_fraction
         self.optimizer = optimizer
         self.param_transform = param_transform
         if loss not in ("chi2", "poisson"):
@@ -277,9 +152,6 @@ class IceFit:
         axis = self.axis
         lr = self.lr
         max_iter = self.max_iterations
-        forward = self.forward
-        interpret = self.interpret
-        bwd_fraction = self.bwd_fraction
 
         transform = self.param_transform or (lambda p: p)
         opt = self.optimizer
@@ -287,12 +159,6 @@ class IceFit:
         two_sample = self.two_sample
 
         def one_forward(medium, steps, key):
-            if forward == "fused":
-                from ..propagate.diff import propagate_expected_diff
-                return propagate_expected_diff(
-                    steps, medium, geo, spectra, key, cfg,
-                    n_iterations=max_iter, interpret=interpret,
-                    bwd_fraction=bwd_fraction)
             res = propagate(steps, medium, geo, spectra, key, cfg,
                             max_iterations=max_iter)
             return res.hist

@@ -1,7 +1,7 @@
 """Event-level orchestration: multi-event pipelining with asynchronous
 device dispatch.
 
-This is the TPU-native replacement for the reference's threaded event loop
+This replaces the reference's threaded event loop
 (I3CLSimModule/I3CLSimClientModule + feeder/harvester threads + the bounded
 I3CLSimQueue backpressure, SURVEY.md sections 2.6/2.9): instead of host
 threads shuttling bunches between queues, JAX's asynchronous dispatch IS the
@@ -88,10 +88,7 @@ class EventPipeline:
             prepared.append((ev_id, slot_batches, per_particle))
 
         # asynchronous dispatch with bounded in-flight futures: the device
-        # works on batch k while the host prepares/enqueues k+1..k+depth.
-        # Dispatch goes through propagate_auto, so on TPU the fused Pallas
-        # kernel serves the pipeline (round-1 review item: the event layer
-        # must not hardcode the slow engine).
+        # works on batch k while the host prepares/enqueues k+1..k+depth
         from ..propagate.dispatch import propagate_auto
         in_flight = []   # (event_id, result_future, host_t0)
         results: Dict[int, EventResult] = {}
@@ -100,10 +97,6 @@ class EventPipeline:
         def harvest(entry):
             ev_id, res, t0 = entry
             hist = np.asarray(res.hist)       # sync point
-            # fused-path loss counters (dropped hits / abandoned photons);
-            # warn loudly -- a production run must not lose data silently
-            from ..propagate.dispatch import check_diagnostics
-            diag = check_diagnostics(res) or {}
             now = time.perf_counter()
             host_t = now - t0
             # device-time estimate from consecutive completion gaps: with a
@@ -129,9 +122,7 @@ class EventPipeline:
                 r.n_hits += float(res.n_hits)
                 r.weight_hits += float(res.weight_hits)
             self.stats.record(float(res.n_generated), float(res.n_hits),
-                              float(res.weight_hits), device_t, host_t,
-                              n_dropped=diag.get("dropped", 0.0),
-                              n_abandoned=diag.get("abandoned", 0.0))
+                              float(res.weight_hits), device_t, host_t)
 
         key = jax.random.PRNGKey(seed)
         batch_counter = 0

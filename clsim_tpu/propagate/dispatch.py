@@ -1,139 +1,31 @@
-"""Backend dispatch: pick the fused Pallas kernel when it supports the
-configuration and a TPU is present, else the reference JAX engine.
+"""Single propagation entry point for callers that hold an int seed or a key.
 
 This mirrors the reference's single entry point
-(I3CLSimStepToPhotonConverter::EnqueueSteps) hiding which compiled kernel
-variant serves a request (private/opencl/I3CLSimStepToPhotonConverterOpenCL.cxx
-compiles one specialized program per option set; we jit-specialize instead).
+(I3CLSimStepToPhotonConverter::EnqueueSteps): callers hand over a slot batch
+and a seed, and the engine (one jit specialization per PropagationConfig,
+where the reference compiles one OpenCL program per option set,
+private/opencl/I3CLSimStepToPhotonConverterOpenCL.cxx) serves it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
-import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..geometry import DetectorGeometry
 from ..medium.properties import MediumProperties
 from ..ops.spectrum import SpectrumTable
 from ..types import PropagationConfig, StepBatch
 from .engine import PropagationResult, propagate
-from .kernel import fused_supported, propagate_fused
-
-
-def _seed_from_key(key):
-    if isinstance(key, jax.core.Tracer):
-        # traced key (e.g. propagate_auto inside a jitted production step):
-        # same mixing, computed on-device
-        ku = jnp.asarray(key).reshape(-1).astype(jnp.uint32)
-        return ((ku[-1] ^ (ku[0] << 16))
-                & jnp.uint32(0x7fffffff)).astype(jnp.int32)
-    # same mixing formula as the traced branch (mask AFTER the xor) so
-    # jitted and eager propagate_auto use the same RNG stream for a given
-    # key, and the result always fits the downstream int32 seed
-    k = np.asarray(key)
-    return (int(k[-1]) ^ (int(k[0]) << 16)) & 0x7fffffff
-
-
-def _pick_block_lanes(n: int) -> Optional[int]:
-    for blk in (8192, 4096, 2048, 1024, 512, 256, 128):
-        if n % blk == 0:
-            return blk
-    return None
-
-
-def backend_reason(medium: MediumProperties, spectra: SpectrumTable,
-                   cfg: PropagationConfig, n_slots: int,
-                   platform: Optional[str] = None,
-                   interpret: bool = False) -> Optional[str]:
-    """None if the fused kernel will serve this request, else why not.
-
-    `interpret` lets the fused path run in Pallas interpreter mode on CPU
-    (tests / debugging)."""
-    plat = platform or jax.devices()[0].platform
-    if plat == "cpu" and not interpret:
-        return "no TPU present (Pallas-TPU kernel needs a TPU)"
-    reason = fused_supported(medium, spectra, cfg)
-    if reason:
-        return reason
-    if _pick_block_lanes(n_slots) is None:
-        return f"n_slots {n_slots} not a multiple of 128"
-    return None
-
-
-def check_diagnostics(res: PropagationResult, raise_on_loss: bool = False):
-    """Validate a fused run's counters (syncs): warn -- or raise -- when
-    hits were dropped (queue overflow) or photons abandoned (max_calls
-    exhausted before the workload drained).  Returns the diagnostics dict
-    (None on the engine path, which can neither drop nor abandon)."""
-    diag = res.diagnostics
-    if diag is None:
-        return None
-    problems = []
-    if diag["dropped"] > 0:
-        problems.append(f"{diag['dropped']:.0f} hits dropped "
-                        "(hit queue overflow; raise queue_rows/flush_every)")
-    if diag["abandoned"] > 0:
-        problems.append(f"{diag['abandoned']:.0f} photons abandoned "
-                        "(max_calls exhausted before draining)")
-    if problems:
-        msg = "fused propagation lost data: " + "; ".join(problems)
-        if raise_on_loss:
-            raise RuntimeError(msg)
-        import warnings
-        warnings.warn(msg, RuntimeWarning, stacklevel=2)
-    return diag
 
 
 def propagate_auto(steps: StepBatch, medium: MediumProperties,
                    geo: DetectorGeometry, spectra: SpectrumTable,
                    key_or_seed: Union[int, jnp.ndarray],
-                   cfg: PropagationConfig,
-                   backend: str = "auto",
-                   **fused_opts) -> PropagationResult:
-    """propagate() with automatic fused-kernel selection.
-
-    `backend`: "auto" (fused when supported), "engine", or "fused"
-    (raises when unsupported).  Extra kwargs go to propagate_fused.
-    """
-    n = int(steps.x.shape[0])
-    if backend not in ("auto", "engine", "fused"):
-        raise ValueError(f"unknown backend {backend!r}")
-    use_fused = False
-    if backend != "engine":
-        reason = backend_reason(medium, spectra, cfg, n,
-                                interpret=bool(fused_opts.get("interpret")))
-        if reason is None:
-            use_fused = True
-        elif backend == "fused":
-            raise ValueError(f"fused path unsupported: {reason}")
-
-    if use_fused:
-        seed = (key_or_seed if isinstance(key_or_seed, int)
-                else _seed_from_key(key_or_seed))
-        fused_opts.setdefault("block_lanes", _pick_block_lanes(n))
-        if ("iters_per_call" not in fused_opts
-                and not isinstance(steps.num_photons, jax.core.Tracer)):
-            # interleaved A/B (scripts/ab_blk.py, ab_sefe.py): on long
-            # workloads ipc=512 (+3%, drain tail amortizes) and
-            # flush_every=64 (+6% vs 16: 1/4 the queue compactions; hit
-            # lanes park longer but hits are rare and CNT_DROPPED stays 0)
-            # win; short workloads keep the finer 256/16 early-exit
-            # granularity.  ipc=1024 and queue_rows=64 measured neutral.
-            pps = int(np.max(np.asarray(steps.num_photons), initial=0))
-            if pps >= 100:
-                fused_opts["iters_per_call"] = 512
-                fused_opts.setdefault("flush_every", 64)
-            else:
-                fused_opts["iters_per_call"] = 256
-        res, totals = propagate_fused(steps, medium, geo, spectra, seed, cfg,
-                                      **fused_opts)
-        # attach (async) so API/pipeline layers can check for dropped or
-        # abandoned photons without forcing a sync here
-        return res._replace(diag_totals=totals)
-
+                   cfg: PropagationConfig) -> PropagationResult:
+    """propagate() for an int seed or a threefry key: an int seed s runs
+    the stream of key [0, s]."""
     key = (jnp.asarray([0, key_or_seed], jnp.uint32)
            if isinstance(key_or_seed, int) else key_or_seed)
     return propagate(steps, medium, geo, spectra, key, cfg)

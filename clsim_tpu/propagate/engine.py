@@ -1,13 +1,13 @@
-"""The photon propagation engine (pure JAX/XLA reference implementation).
+"""The photon propagation engine: the one propagation path, in plain JAX.
 
-This is the TPU-native redesign of the reference's device kernel
+A vectorized redesign of the reference's device kernel
 (resources/kernels/propagation_kernel.c.cl:406-913 and
 sparse_collision_kernel.c.cl).  The physics contract is identical; the
 execution model is not a port:
 
-  * one *photon slot* per SIMD lane instead of one OpenCL work item per step;
-    slots regenerate a fresh photon from their assigned step the moment the
-    previous one dies, keeping vector lanes full (the reference hides photon
+  * one *photon slot* per vector lane instead of one OpenCL work item per
+    step; slots regenerate a fresh photon from their assigned step the moment
+    the previous one dies, keeping lanes full (the reference hides photon
     lifetime variance in SIMT while-loops; we hide it in slot recycling),
   * propagation segments are capped at `max_segment_m`.  Because exponential
     scatter distances are memoryless, truncating a segment at the cap and
@@ -19,10 +19,10 @@ execution model is not a port:
     fixed-bound masked loop (same piecewise-constant integral as
     propagation_kernel.c.cl:646-676, so results agree to float precision),
   * DOM collision uses a dense all-strings 2-D cull + top-K nearest-string
-    selection + per-string z-layer window instead of the 2-D cell grid
-    (see geometry.py), eliminating gather-heavy indirection,
-  * hits are deposited into per-DOM time histograms via deterministic
-    scatter-add (replacing the reference's atomic hit-append,
+    selection + per-string DOM slot table instead of the 2-D cell grid
+    (see geometry.py),
+  * hits are deposited into per-DOM time histograms via scatter-add
+    (replacing the reference's atomic hit-append,
     propagation_kernel.c.cl:329), with an optional fixed-capacity photon
     record ring per slot for I3Photon-level parity output,
   * randomness is counter-based threefry keyed on (iteration), so samplers
@@ -116,24 +116,6 @@ class PropagationResult(NamedTuple):
     n_iterations: jnp.ndarray
     rec_count: Optional[jnp.ndarray] = None
     rec: Optional[dict] = None
-    # fused-path diagnostics counter vector (kernel.py CNT_* layout), kept
-    # as a device array so attaching it does not force a host sync (the
-    # pipeline's double buffering depends on async dispatch).  None on the
-    # engine path.  The reference surfaces the same "gave up vs drained"
-    # information through its statistics counters
-    # (I3CLSimStepToPhotonConverterOpenCL.cxx:1625-1637).
-    diag_totals: Optional[jnp.ndarray] = None
-
-    @property
-    def diagnostics(self) -> Optional[dict]:
-        """Host-side dict of the fused counters (syncs the device)."""
-        if self.diag_totals is None:
-            return None
-        import numpy as _np
-        t = _np.asarray(self.diag_totals, _np.float64)
-        return {"generated": t[0], "hits": t[1], "weight_sum": t[2],
-                "dropped": t[3], "abandoned": t[4], "queued": t[5],
-                "work": t[6]}
 
 
 # ---------------------------------------------------------------------------
@@ -244,9 +226,8 @@ def _segment_distances(state: SlotState, medium: MediumProperties,
     t_bound0 = jnp.where(t_bound0 < 0.0, BIG, t_bound0)
     t_step = jnp.where(vertical, BIG, T / jnp.maximum(abs_dz, 1e-20))
 
-    # Per-lane layer lookups are serialized gathers on TPU (~0.5 ms at 64k
-    # lanes), so fetch each photon's whole +-K layer neighborhood with ONE
-    # one-hot MXU matmul and index the walk steps with scalar dynamic slices.
+    # fetch each photon's whole +-K layer neighborhood in one lookup and
+    # index the walk steps with static slices
     K = cfg.max_layer_steps
     Wb = shifted_window_table(medium.b400, K)        # (L, 2K+1)
     Wa = shifted_window_table(medium.a_dust400, K)
@@ -373,11 +354,10 @@ def _check_collisions(state: SlotState, geo: DetectorGeometry,
                       cfg: PropagationConfig, d_prop, active):
     """Find the closest DOM intersection within d_prop along the ray.
 
-    TPU-native two-level test replacing the reference's cell-grid/z-layer
-    walk (sparse_collision_kernel.c.cl): (1) dense 2-D cull + z cull over all
+    Two-level test replacing the reference's cell-grid/z-layer walk
+    (sparse_collision_kernel.c.cl): (1) dense 2-D cull + z cull over all
     strings -- pure vector math; (2) for the top-K nearest candidate strings,
-    fetch the string's full dense DOM slot table with one one-hot MXU matmul
-    and sphere-test every slot.  No per-lane gathers anywhere.
+    fetch the string's full dense DOM slot table and sphere-test every slot.
 
     Returns (hit, hit_dist, hit_dom): hit_dist <= d_prop is the entry-point
     distance smin1 (sparse_collision_kernel.c.cl:109-158), hit_dom the flat
@@ -401,9 +381,7 @@ def _check_collisions(state: SlotState, geo: DetectorGeometry,
     # closest approach parameter of the infinite 2D ray, clamped to the
     # STATIC segment cap (not this segment's d_prop): candidates beyond
     # d_prop are rejected by the sphere test's distance gate, and the
-    # constant cap keeps the cull independent of the layer walk (the fused
-    # kernel relies on that independence to overlap the two; both paths
-    # must rank identically for parity)
+    # constant cap keeps the cull independent of the layer walk)
     t2d = jnp.clip((rx * dx[:, None] + ry * dy[:, None]) * inv_dir_xy2[:, None],
                    0.0, cfg.max_segment_m)
     cx = x[:, None] + dx[:, None] * t2d - sx
@@ -431,10 +409,8 @@ def _check_collisions(state: SlotState, geo: DetectorGeometry,
         s_ok = jnp.min(ranked, axis=1) < BIG
         ranked = masked_set(ranked, s_idx, BIG)
 
-        # split-precision position reconstruction: exact per-string frame
-        # (VPU select-reduce, only the 5 features the sphere test needs) +
-        # small residuals (float one-hot, whose bf16-rounded output costs
-        # only ~cm on meters-scale residuals)
+        # position reconstruction: exact per-string frame (only the 5
+        # features the sphere test needs) + small per-DOM residuals
         feats = select_rows_exact(geo.string_features[:, (0, 1, 4, 5, 6)],
                                   s_idx)                           # (N, 5)
         rel = onehot_gather(rel_table, s_idx).reshape(n, M, 4)
@@ -476,23 +452,13 @@ def _check_collisions(state: SlotState, geo: DetectorGeometry,
 
 def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
                medium: MediumProperties, geo: DetectorGeometry,
-               spectra: SpectrumTable, cfg: PropagationConfig, key,
-               _ablate: str = "", uniforms=None):
-    # _ablate is a perf-probe hook for scripts/ only (never set on the
-    # library path; a stale env var must not be able to change physics in a
-    # cached jit, hence an explicit argument instead of os.environ)
+               spectra: SpectrumTable, cfg: PropagationConfig, key):
     n = state.x.shape[0]
-    if uniforms is not None:
-        # externally supplied stream (shared with the fused kernel's parity
-        # / custom_vjp path): (T, 8, N), iteration i consumes row i
-        u = jax.lax.dynamic_index_in_dim(uniforms, i, keepdims=False)
-    else:
-        u = rng.uniforms(rng.iter_key(key, i), (n,), 8)
+    u = rng.uniforms(rng.iter_key(key, i), (n,), 8)
 
     # --- spawn new photons into empty slots ---
     fresh = (~state.in_flight) & (state.photons_left > 0)
-    if "nocreate" not in _ablate:
-        state = _create_photons(state, steps, medium, spectra, cfg, u[:4], fresh)
+    state = _create_photons(state, steps, medium, spectra, cfg, u[:4], fresh)
     if cfg.photon_history_entries > 0:
         # a fresh photon starts with an empty scatter history
         clr = lambda r: jnp.where(fresh[:, None], 0.0, r)
@@ -519,12 +485,7 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
     abs_budget = state.abs_lens_left * abs_corr
 
     score_info = None
-    if "nowalk" in _ablate:
-        d_prop = jnp.minimum(sca_budget * 25.0, cfg.max_segment_m)
-        absorbed = abs_budget < sca_budget
-        scattered = ~absorbed
-        abs_left = jnp.maximum(abs_budget - d_prop * 0.01, 0.0)
-    elif use_score:
+    if use_score:
         d_prop, absorbed, scattered, abs_left, score_info = \
             _segment_distances(state, medium, cfg, sca_budget, abs_budget,
                                with_score=True)
@@ -546,11 +507,7 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
         d_prop = jax.lax.stop_gradient(d_prop)
 
     # --- collisions ---
-    if "nocollision" in _ablate:
-        hit = jnp.zeros(n, bool)
-        hit_dist = d_prop
-        hit_dom = jnp.zeros(n, jnp.int32)
-    elif cfg.collision_mode == "bruteforce":
+    if cfg.collision_mode == "bruteforce":
         hit, hit_dist, hit_dom = _check_collisions_bruteforce(
             state, geo, cfg, d_prop, active)
     else:
@@ -614,9 +571,7 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
     tbin = jnp.clip(tbin_f.astype(jnp.int32), 0, cfg.hist_n_bins - 1)
     flat_idx = hit_dom * cfg.hist_n_bins + tbin
     cap = cfg.hit_compact_capacity
-    if "nohist" in _ablate:
-        hist = acc.hist
-    elif cfg.soft_binning:
+    if cfg.soft_binning:
         frac_hi = jnp.clip(tbin_f - jnp.floor(tbin_f), 0.0, 1.0)
         tbin_lo = jnp.clip(jnp.floor(tbin_f).astype(jnp.int32), 0, cfg.hist_n_bins - 1)
         tbin_hi = jnp.clip(tbin_lo + 1, 0, cfg.hist_n_bins - 1)
@@ -837,24 +792,18 @@ def _init_acc(n_slots: int, n_doms: int, cfg: PropagationConfig) -> Accumulators
         rec_count=rec_count, rec=rec)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "max_iterations", "unroll"))
+@functools.partial(jax.jit, static_argnames=("cfg", "max_iterations"))
 def propagate(steps: StepBatch, medium: MediumProperties,
               geo: DetectorGeometry, spectra: SpectrumTable,
               key, cfg: PropagationConfig,
-              max_iterations: int = 0, unroll: int = 1,
-              uniforms=None) -> PropagationResult:
+              max_iterations: int = 0) -> PropagationResult:
     """Propagate all photons of a (padded) step batch.
 
     `steps` must already be slot-assigned: exactly one step per slot (use
     sources.assign_steps_to_slots).  With max_iterations == 0 a while_loop
     runs until every slot is drained (forward-only); a positive value runs a
-    reverse-differentiable bounded loop instead.  `uniforms` (optional,
-    (max_iterations, 8, N)) replaces the internal threefry stream -- the
-    shared-stream contract with the fused kernel's parity and custom_vjp
-    paths.
+    reverse-differentiable bounded loop instead.
     """
-    if uniforms is not None and not max_iterations:
-        max_iterations = int(uniforms.shape[0])
     state = _init_state(steps, cfg.photon_history_entries,
                         score=(cfg.score_function
                                and cfg.estimator == "expected"
@@ -871,7 +820,7 @@ def propagate(steps: StepBatch, medium: MediumProperties,
         def fori_body(i, carry):
             state, acc = carry
             state, acc = _iteration(i, state, acc, steps, medium, geo,
-                                    spectra, cfg, key, uniforms=uniforms)
+                                    spectra, cfg, key)
             return (state, acc)
         state, acc = jax.lax.fori_loop(0, max_iterations,
                                        jax.checkpoint(fori_body), (state, acc))

@@ -1,7 +1,7 @@
 """Light-source conversion layer: propagator plugins + parameterization
 matchers + the conversion queue.
 
-TPU-native equivalents of three reference components:
+Equivalents of three reference components:
 
 * ``LightSourcePropagator`` -- the plugin protocol of
   ``I3CLSimLightSourcePropagator::Convert(source, id, secondary_cb,

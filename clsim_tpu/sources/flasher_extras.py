@@ -1,7 +1,7 @@
 """Flasher fidelity extras: measured LED time profile, flasher-board info
 conversion, fake info generation, and Standard Candle pulses.
 
-TPU-native equivalents of four reference python modules (host-side source
+Equivalents of four reference python modules (host-side source
 preparation; the device never sees these -- they only shape the FlasherPulse
 stream fed to sources/flasher.FlasherStepGenerator):
 

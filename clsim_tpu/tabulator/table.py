@@ -319,14 +319,11 @@ def _tabulate_batch(chunk, steps: StepBatch, key, axes: SphericalAxes,
     """Propagate one slot-assigned batch in table mode and return the raw
     (unnormalized) flat bin contents.
 
-    Deposit strategy: scattered adds into the ~1M-bin table serialize
-    per ENTRY on TPU (measured ~300 photons/s with device-side .at[].add,
-    whether issued per substep or batched), so the device runs the
-    propagation in jitted chunks (prebuilt by _make_tabulate_chunk) that
-    OUTPUT the comb's (bin, weight) entries, and the host accumulates them
-    with np.add.at -- the same division of labor as the fused kernel's
-    record queue.  Measured ~3 orders of magnitude faster end-to-end
-    (scripts/bench_tabulator.py)."""
+    Deposit strategy: the device runs the propagation in jitted chunks
+    (prebuilt by _make_tabulate_chunk) that OUTPUT the comb's (bin, weight)
+    entries, and the host accumulates them into the ~1M-bin table with
+    np.add.at.  Whether a device-side scatter-add into the table is faster
+    is not measured yet (scripts/bench_tabulator.py times this path)."""
     n = steps.x.shape[0]
     state = E._init_state(steps)
     content = np.zeros(axes.n_bins, np.float64)

@@ -1,12 +1,12 @@
 """Core data batches (struct-of-arrays) and the static simulation config.
 
-TPU-native equivalents of the reference's packed POD structs:
+Equivalents of the reference's packed POD structs:
   * StepBatch  <-> I3CLSimStep   (public/clsim/I3CLSimStep.h:68-155)
   * PhotonBatch<-> I3CLSimPhoton (public/clsim/I3CLSimPhoton.h:194-210)
 
 Where the reference bakes feature flags into generated OpenCL via #defines
 (SAVE_ALL_PHOTONS, STOP_PHOTONS_ON_DETECTION, PANCAKE_FACTOR, ...;
-propagation_kernel.c.cl:27-41), the TPU build specializes jit compilation on
+propagation_kernel.c.cl:27-41), this package specializes jit compilation on
 the static fields of PropagationConfig.
 """
 
@@ -127,7 +127,7 @@ class PropagationConfig:
     pancake_factor: float = 1.0     # PANCAKE_FACTOR (DOM oversize flattening)
     dom_oversize: float = 1.0       # collision radius = R * oversize
     max_segment_m: float = 90.0     # segment cap; bounds the per-iteration
-                                    # layer/DOM windows (TPU reformulation of
+                                    # layer/DOM windows (fixed-trip form of
                                     # the unbounded SIMT walk)
     max_layer_steps: int = 16       # medium layers crossable per segment
     max_dom_layers: int = 8         # DOM z-layers checked per (segment,string)
@@ -137,8 +137,8 @@ class PropagationConfig:
                                     # "expected": continuous-absorption
                                     # pass-through weights (differentiable)
     hit_compact_capacity: int = 0   # >0: top_k-compact hits before the
-                                    # histogram scatter (TPU: scatters
-                                    # serialize per update); 0 = full scatter
+                                    # histogram scatter (fewer scatter
+                                    # updates); 0 = full scatter
     fixed_abs_lens: float = 0.0     # >0: PROPAGATE_FOR_FIXED_NUMBER_OF_
                                     # ABSORPTION_LENGTHS (tabulator mode)
     # time histogram
@@ -173,8 +173,7 @@ class PropagationConfig:
     # no-scatter survival -int b_eff ds (traced coefficients, detached
     # geometry), per scatter the distance density log b_eff(end) and the
     # HG/Liu mixture angle density.  The primal is exactly unchanged
-    # (exp(0) = 1), so the fused forward needs no modification; the engine
-    # backward then carries pathwise + score terms, an unbiased estimator
+    # (exp(0) = 1); the engine backward then carries pathwise + score terms, an unbiased estimator
     # of d E[hist] / d(scattering params) including the discontinuous
     # hit/miss contribution detached-pathwise AD misses (round-3 review
     # item 3).  Tradeoff: the score term's variance grows with scatter

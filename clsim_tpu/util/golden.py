@@ -15,9 +15,7 @@ contract here is:
     change that shifts timing or occupancy fails loudly, exactly like the
     reference's frozen-RNG PPC comparison.
 
-Goldens are generated on the CPU backend (deterministic threefry + float32);
-the fused TPU kernel is separately held to the engine by
-tests/test_kernel.py's same-uniform-stream parity tests.
+Goldens are generated on the CPU backend (deterministic threefry + float32).
 """
 
 from __future__ import annotations

@@ -18,22 +18,15 @@ class RunStatistics:
     total_device_time_ns: float = 0.0
     total_host_time_ns: float = 0.0
     num_kernel_calls: int = 0
-    # fused-path loss counters (kernel CNT_DROPPED / CNT_ALIVE): nonzero
-    # means a production run lost hits or gave up on photons
-    total_num_hits_dropped: float = 0.0
-    total_num_photons_abandoned: float = 0.0
 
     def record(self, n_generated, n_hits, weight_hits,
-               device_time_s, host_time_s,
-               n_dropped: float = 0.0, n_abandoned: float = 0.0):
+               device_time_s, host_time_s):
         self.total_num_photons_generated += float(n_generated)
         self.total_num_photons_at_doms += float(n_hits)
         self.total_weight_at_doms += float(weight_hits)
         self.total_device_time_ns += device_time_s * 1e9
         self.total_host_time_ns += host_time_s * 1e9
         self.num_kernel_calls += 1
-        self.total_num_hits_dropped += float(n_dropped)
-        self.total_num_photons_abandoned += float(n_abandoned)
 
     def as_dict(self) -> Dict[str, float]:
         gen = max(self.total_num_photons_generated, 1.0)
@@ -48,6 +41,4 @@ class RunStatistics:
             "AverageDeviceTimePerPhoton": self.total_device_time_ns / gen,
             "AverageHostTimePerPhoton": self.total_host_time_ns / gen,
             "DeviceUtilization": self.total_device_time_ns / host,
-            "TotalNumHitsDropped": self.total_num_hits_dropped,
-            "TotalNumPhotonsAbandoned": self.total_num_photons_abandoned,
         }

@@ -14,8 +14,8 @@ engine's vectorization tricks:
   * every photon is an independent row; there is no slot machinery.
 
 Because it shares no code with clsim_tpu.propagate (only the data
-containers), statistical agreement between this oracle and the engine/fused
-kernel is evidence about the *physics contract*, not about shared bugs --
+containers), statistical agreement between this oracle and the engine is
+evidence about the *physics contract*, not about shared bugs --
 the role the reference fills with its compareToPPC golden tests
 (SURVEY.md section 4.3).  The engine's max_segment_m truncation claims to be
 statistically exact (memoryless exponentials); the oracle, having no cap,

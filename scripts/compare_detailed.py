@@ -2,9 +2,9 @@
 parameterization (round-4 review item 10): compare
 DetailedCascadePropagator / DetailedMuonPropagator step output with the
 PPC parameterization on (a) the photon-weighted longitudinal emission
-profile, (b) the emission-angle distribution, and (c) -- with RUN_TPU=1 --
-the propagated hit-time distribution on the bench detector, at three
-energies each.
+profile, (b) the emission-angle distribution, and (c) -- with --propagate,
+on the default JAX device -- the propagated hit-time distribution on the
+bench detector, at three energies each.
 
 The reference's Geant4 propagator (private/geant4/TrkCerenkov.cxx:120-619)
 tracks every shower particle; both models here are reduced.  What this
@@ -12,22 +12,19 @@ script measures is how far the reduced detailed model's *distributions*
 sit from the PPC parameterization that IceCube production itself uses
 (PPC.cxx:749-843) -- the deviation bound DETAILED.md documents.
 
-Outputs /tmp/compare_detailed.npz + a printed table.
+Outputs compare_detailed.npz in the temporary directory + a printed table.
+
+    python scripts/compare_detailed.py [--propagate]
 """
 
+import argparse
 import os
 import sys
+import tempfile
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-RUN_TPU = os.environ.get("RUN_TPU", "0") == "1"
-
-import jax  # noqa: E402
-
-if not RUN_TPU:
-    jax.config.update("jax_platforms", "cpu")
 
 from clsim_tpu.medium.functions import DEFAULT_ICE_REF_INDEX  # noqa: E402
 from clsim_tpu.medium.properties import make_homogeneous_ice  # noqa: E402
@@ -119,6 +116,11 @@ class HistAcc:
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--propagate", action="store_true",
+                    help="also propagate both step sets on the bench "
+                         "detector and compare hit-time distributions")
+    args = ap.parse_args()
     medium = make_homogeneous_ice(b400=0.04, a_dust400=0.01)
     spec = make_cherenkov_spectrum(DEFAULT_ICE_REF_INDEX, 265.0, 675.0)
     ppc = PPCStepGenerator(medium, spec, photons_per_step=200)
@@ -195,8 +197,8 @@ def main():
                      length=L),
                  lim_depth=L, n_seeds=n_seeds)
 
-    # ---- hit-time distributions on the bench detector (TPU) -------------
-    if RUN_TPU:
+    # ---- hit-time distributions on the bench detector -------------------
+    if args.propagate:
         import time
 
         import jax.numpy as jnp
@@ -204,23 +206,23 @@ def main():
         from bench import build_workload
         from clsim_tpu.propagate.dispatch import propagate_auto
         from clsim_tpu.sources.ppc import assign_steps_to_slots
+        from clsim_tpu.util.runtime import enable_compile_cache
 
-        cpu0 = jax.devices("cpu")[0]
-        with jax.default_device(cpu0):
-            medium_b, geo_b, spectra_b, cfg_b, _ = build_workload(262144, 200)
+        enable_compile_cache()
+        medium_b, geo_b, spectra_b, cfg_b, _ = build_workload(
+            "hex61", 262144, 200)
 
         for case in ("cascade_100", "cascade_10000", "muon_1000"):
             hists = {}
             for name in ("ppc", "detailed"):
                 steps = results_steps[f"{case}_{name}"]
-                with jax.default_device(cpu0):
-                    slot_batches = assign_steps_to_slots(steps, 262144)
+                slot_batches = assign_steps_to_slots(steps, 262144)
                 total = None
                 t0 = time.perf_counter()
                 for i, b in enumerate(slot_batches):
                     bj = StepBatch(*[jnp.asarray(f) for f in b])
                     res = propagate_auto(bj, medium_b, geo_b, spectra_b,
-                                         1000 + i, cfg_b, max_calls=512)
+                                         1000 + i, cfg_b)
                     h = np.asarray(res.hist, np.float64).sum(axis=0)
                     total = h if total is None else total + h
                 hists[name] = total
@@ -242,9 +244,9 @@ def main():
                                        ratio=hd.sum() / hp.sum(),
                                        hist_ppc=hp, hist_det=hd)
 
-    np.savez("/tmp/compare_detailed.npz",
-             **{k: np.asarray(v, dtype=object) for k, v in out.items()})
-    print("saved /tmp/compare_detailed.npz")
+    path = os.path.join(tempfile.gettempdir(), "compare_detailed.npz")
+    np.savez(path, **{k: np.asarray(v, dtype=object) for k, v in out.items()})
+    print(f"saved {path}")
 
 
 if __name__ == "__main__":

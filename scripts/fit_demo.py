@@ -1,121 +1,61 @@
-"""End-to-end ice-model recovery fit on the TPU fused path (round-4 review
-item 3): take the parsed spice_lea model, perturb per-layer b400 /
-a_dust400 inside the instrumented depth band and the anisotropy k1
-(log-magnitude mag_along), generate a synthetic target on the fused
-expected-estimator forward at TRUTH parameters, and fit the perturbed
-model back with IceFit(forward='fused', score_function=True) + optax adam
-in log-parameter space.  Also runs the same fit with the DETACHED
-estimator (score_function=False) to demonstrate why the score term is the
-default for scattering fits.
+"""End-to-end ice-model recovery fit through the engine: take the
+171-layer bench ice, perturb per-layer b400 / a_dust400 inside the
+instrumented depth band and the anisotropy k1 (log-magnitude mag_along),
+generate a synthetic target with the expected-estimator forward at TRUTH
+parameters, and fit the perturbed model back with
+IceFit(score_function=True) + optax adam in log-parameter space.  Also runs
+the same fit with the DETACHED estimator (score_function=False) to show why
+the score term is the default for scattering fits.
 
-This is the BASELINE differentiability north star as a deliverable: the
-reference (clsim) has no gradients at all; ice models there are fitted by
+This is the differentiability north star as a deliverable: the reference
+(clsim) has no gradients at all; ice models there are fitted by
 grid-searching forward simulations against flasher data.
 
-Outputs one npz (FIT_OUT, default /tmp/fit_demo.npz) with parameter/loss
-traces + wall-clock, consumed by FIT.md.
+Outputs one npz (FIT_OUT, default fit_demo.npz in the temporary directory)
+with parameter/loss traces + wall-clock, consumed by FIT.md.
 
 Env knobs: FIT_SLOTS (32768), FIT_ITERS (48), FIT_STEPS (300),
 FIT_STEPS_DETACHED (120), FIT_TARGET_AVG (16), FIT_LR (0.02),
-FIT_BWD_FRACTION (1.0), FIT_INTERPRET (0; 1 = CPU interpret smoke run).
+FIT_MODE (scattering | absorption | k1), FIT_GROUPS (0 = one per layer).
+On a CPU-only JAX the defaults shrink to a smoke-sized run.
+
+    python scripts/fit_demo.py
 """
 
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-INTERPRET = os.environ.get("FIT_INTERPRET", "0") == "1"
-
 import jax  # noqa: E402
-
-if INTERPRET:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
-from clsim_tpu.geometry import hexagonal_geometry  # noqa: E402
-from clsim_tpu.hits.acceptance import icecube_dom_acceptance  # noqa: E402
-from clsim_tpu.medium.functions import DEFAULT_ICE_REF_INDEX  # noqa: E402
-from clsim_tpu.medium.ice_parser import parse_ppc_ice_model  # noqa: E402
-from clsim_tpu.ops.spectrum import (make_cherenkov_spectrum,  # noqa: E402
-                                    stack_spectra)
 from clsim_tpu.parallel.mesh import IceFit, make_mesh, shard_steps  # noqa: E402
-from clsim_tpu.propagate.diff import propagate_expected_diff  # noqa: E402
-from clsim_tpu.types import PropagationConfig, StepBatch  # noqa: E402
-
-
-def sync(x):
-    return float(jnp.sum(x))
-
-
-def build(n_slots):
-    medium, _ = parse_ppc_ice_model("/root/reference/resources/ice/spice_lea")
-    geo = hexagonal_geometry(n_rings=2, string_spacing=125.0,
-                             doms_per_string=60, dom_spacing=17.0,
-                             z_top=500.0, oversize=5.0)
-    acc = icecube_dom_acceptance(dom_radius=geo.om_radius * geo.oversize,
-                                 efficiency=1.0)
-    nb = np.asarray(acc.values).shape[0]
-    bias_x = float(acc.first_x) + float(acc.dx) * np.arange(nb)
-    spectra = stack_spectra([make_cherenkov_spectrum(
-        DEFAULT_ICE_REF_INDEX, medium.min_wlen, medium.max_wlen,
-        bias_wlen_nm=bias_x, bias_values=np.asarray(acc.values))])
-    cfg = PropagationConfig(n_slots=n_slots, estimator="expected",
-                            soft_binning=True, fixed_abs_lens=8.0,
-                            pancake_factor=5.0, hist_t_min=0.0,
-                            hist_t_max=3000.0, hist_n_bins=128,
-                            max_layer_steps=4, max_segment_m=35.0)
-
-    # light sources spread through the instrumented volume: isotropic
-    # emission points, z in [-450, 450], xy within the string footprint
-    rr = np.random.default_rng(4242)
-    n = n_slots
-    costh = rr.uniform(-1, 1, n)
-    sinth = np.sqrt(1 - costh ** 2)
-    phi = rr.uniform(0, 2 * np.pi, n)
-    r_xy = 220.0 * np.sqrt(rr.random(n))
-    a_xy = rr.uniform(0, 2 * np.pi, n)
-    steps = StepBatch(
-        x=(r_xy * np.cos(a_xy)).astype(np.float32),
-        y=(r_xy * np.sin(a_xy)).astype(np.float32),
-        z=rr.uniform(-450.0, 450.0, n).astype(np.float32),
-        t=np.zeros(n, np.float32),
-        dir_x=(sinth * np.cos(phi)).astype(np.float32),
-        dir_y=(sinth * np.sin(phi)).astype(np.float32),
-        dir_z=costh.astype(np.float32),
-        length=np.full(n, 1e-3, np.float32),
-        beta=np.ones(n, np.float32),
-        num_photons=np.ones(n, np.int32),
-        weight=np.ones(n, np.float32),
-        identifier=np.zeros(n, np.int32),
-        source_type=np.zeros(n, np.int32))
-    return medium, geo, spectra, cfg, steps
+from clsim_tpu.propagate.engine import propagate  # noqa: E402
+from clsim_tpu.types import StepBatch  # noqa: E402
+from clsim_tpu.util.runtime import enable_compile_cache  # noqa: E402
+from clsim_tpu.workloads import fit_workload  # noqa: E402
 
 
 def main():
-    n_slots = int(os.environ.get("FIT_SLOTS", 512 if INTERPRET else 32768))
-    T = int(os.environ.get("FIT_ITERS", 8 if INTERPRET else 48))
-    n_steps = int(os.environ.get("FIT_STEPS", 6 if INTERPRET else 300))
+    enable_compile_cache()
+    small = jax.devices()[0].platform == "cpu"
+    n_slots = int(os.environ.get("FIT_SLOTS", 512 if small else 32768))
+    T = int(os.environ.get("FIT_ITERS", 8 if small else 48))
+    n_steps = int(os.environ.get("FIT_STEPS", 6 if small else 300))
     n_steps_det = int(os.environ.get("FIT_STEPS_DETACHED",
-                                     3 if INTERPRET else 120))
-    n_target = int(os.environ.get("FIT_TARGET_AVG", 2 if INTERPRET else 16))
+                                     3 if small else 120))
+    n_target = int(os.environ.get("FIT_TARGET_AVG", 2 if small else 16))
     lr = float(os.environ.get("FIT_LR", 0.02))
-    bwd_fraction = float(os.environ.get("FIT_BWD_FRACTION", 1.0))
-    out_path = os.environ.get("FIT_OUT", "/tmp/fit_demo.npz")
+    out_path = os.environ.get(
+        "FIT_OUT", os.path.join(tempfile.gettempdir(), "fit_demo.npz"))
 
-    on_cpu = jax.devices()[0].platform == "cpu"
-    cpu0 = jax.devices("cpu")[0] if not on_cpu else None
-
-    if cpu0 is not None:
-        with jax.default_device(cpu0):
-            medium, geo, spectra, cfg, steps = build(n_slots)
-    else:
-        medium, geo, spectra, cfg, steps = build(n_slots)
+    medium, geo, spectra, cfg, steps = fit_workload(n_slots)
 
     nl = medium.n_layers
     z0 = float(np.asarray(medium.layers_z_start))
@@ -124,7 +64,7 @@ def main():
     centers = z0 + (np.arange(nl) + 0.5) * dz
     band = np.where((centers > -350.0) & (centers < 350.0))[0]
     lo, hi = int(band[0]), int(band[-1]) + 1
-    if INTERPRET:
+    if small:
         lo, hi = lo + 25, lo + 29   # tiny band for the smoke run
     print(f"layers {nl}, fit band [{lo},{hi}) = {hi-lo} layers, "
           f"slots {n_slots}, T {T}, steps {n_steps}", flush=True)
@@ -205,7 +145,7 @@ def main():
     steps_sharded = shard_steps(steps, mesh)
     steps_j = StepBatch(*[jnp.asarray(f) for f in steps])
 
-    # ---- synthetic target at TRUTH parameters, fused forward ------------
+    # ---- synthetic target at TRUTH parameters ----------------------------
     # Expectation matching: the target is the truth forward AVERAGED over
     # n_target independent keys; each fit step draws a FRESH key pair and
     # the two-sample loss gradient (IceFit(two_sample=True)) is unbiased
@@ -218,9 +158,9 @@ def main():
     # the CRN minimum either.)
     @jax.jit
     def target_fwd(key):
-        return propagate_expected_diff(
-            steps_j, medium, geo, spectra, jax.random.fold_in(key, 0), cfg,
-            n_iterations=T, interpret=INTERPRET)
+        return propagate(steps_j, medium, geo, spectra,
+                         jax.random.fold_in(key, 0), cfg,
+                         max_iterations=T).hist
 
     key_crn = jnp.asarray([13, 777], jnp.uint32)
     t0 = time.perf_counter()
@@ -229,7 +169,7 @@ def main():
         # is deterministic with its exact zero at truth
         target = target_fwd(key_crn)
         print(f"target built (CRN, shared stream) in "
-              f"{time.perf_counter()-t0:.1f}s, sum={sync(target):.1f}",
+              f"{time.perf_counter()-t0:.1f}s, sum={float(target.sum()):.1f}",
               flush=True)
     else:
         tgt = None
@@ -238,15 +178,14 @@ def main():
             tgt = h if tgt is None else tgt + h
         target = tgt / n_target
         print(f"target built ({n_target}-key average) in "
-              f"{time.perf_counter()-t0:.1f}s, sum={sync(target):.1f}",
+              f"{time.perf_counter()-t0:.1f}s, sum={float(target.sum()):.1f}",
               flush=True)
 
     # ---- the fit --------------------------------------------------------
     def run_fit(score, steps_n, tag):
         sched = optax.exponential_decay(lr, max(steps_n // 3, 1), 0.5)
-        fit = IceFit(mesh, cfg, geo, spectra, forward="fused",
-                     interpret=INTERPRET, score_function=score,
-                     bwd_fraction=bwd_fraction, max_iterations=T,
+        fit = IceFit(mesh, cfg, geo, spectra, score_function=score,
+                     max_iterations=T,
                      optimizer=optax.adam(sched), param_transform=transform,
                      loss="chi2",
                      two_sample=(mode != "absorption"))
@@ -293,7 +232,7 @@ def main():
 
     out = dict(
         mode=mode, lo=lo, hi=hi, n_slots=n_slots, T=T, lr=lr,
-        n_groups=n_groups, gidx=gidx, bwd_fraction=bwd_fraction,
+        n_groups=n_groups, gidx=gidx,
         n_target=n_target,
         b_true=b_true, a_true=a_true, k1_true=k1_true,
         b_pert=b_pert, a_pert=a_pert, k1_pert=k1_pert,

@@ -1,15 +1,20 @@
 """Scaling-efficiency harness: photons/s vs device count on a mesh.
 
-Measures the BASELINE ">=90% scaling efficiency 1 chip -> N" contract.
-On this machine it runs on a virtual CPU mesh (validating the sharding
-program and the harness itself); on real hardware the same code measures
-chips over ICI / hosts over DCN -- run one process per host after
-clsim_tpu.parallel.bootstrap.initialize_distributed().
+Measures the ">=90% scaling efficiency 1 device -> N" contract on the
+devices JAX sees (the cards of one host, joined all to all by NVLink; for
+several hosts run one process per host after
+clsim_tpu.parallel.bootstrap.initialize_distributed()).  A rehearsal on
+virtual CPU devices validates the sharded program and the harness only:
+virtual devices share the host's cores, so their efficiency means nothing.
 
-Usage:  python scripts/scaling_bench.py [max_devices] [slots_per_device]
-Prints one JSON line: {"throughput": {n: photons_per_s}, "efficiency": ...}
+    python scripts/scaling_bench.py [max_devices] [slots_per_device]
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
+        python scripts/scaling_bench.py 8 512      # rehearsal
+
+Prints one JSON line: {"throughput_photons_per_s": {n: ...}, ...}
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -17,22 +22,13 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-N_VIRT = int(os.environ.get("SCALING_VIRT_DEVICES", "8"))
-if "--real" not in sys.argv:
-    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                               + f" --xla_force_host_platform_device_count={N_VIRT}")
-
 import jax  # noqa: E402
-
-if "--real" not in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 
 def main():
-    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    args = sys.argv[1:]
     max_devices = int(args[0]) if args else len(jax.devices())
     slots_per_dev = int(args[1]) if len(args) > 1 else 512
     photons_per_slot = int(os.environ.get("SCALING_PHOTONS", "16"))
@@ -41,7 +37,9 @@ def main():
     from clsim_tpu.parallel.mesh import (make_mesh, make_sharded_propagate,
                                          shard_steps)
     from clsim_tpu.types import StepBatch
-    import dataclasses
+    from clsim_tpu.util.runtime import device_summary, enable_compile_cache
+
+    enable_compile_cache()
 
     sizes = []
     n = 1
@@ -54,20 +52,20 @@ def main():
         devices = jax.devices()[:nd]
         mesh = make_mesh(np.asarray(devices))
         medium, geo, spectra, cfg, steps = build_workload(
-            slots_per_dev * nd, photons_per_slot)
+            "hex61", slots_per_dev * nd, photons_per_slot)
         cfg = dataclasses.replace(cfg, n_slots=slots_per_dev)
         run = make_sharded_propagate(mesh, cfg)
         steps = shard_steps(StepBatch(*[jnp.asarray(f) for f in steps]),
                             mesh)
         key = jnp.asarray([0, 3], jnp.uint32)
-        res = run(steps, medium, geo, spectra, key)   # compile + warm
-        total = float(res.n_generated)
+        jax.block_until_ready(run(steps, medium, geo, spectra, key))
         t0 = time.perf_counter()
         reps = 2
         for r in range(reps):
-            res = run(steps, medium, geo, spectra,
-                      jnp.asarray([0, 4 + r], jnp.uint32))
-            total_r = float(res.n_generated)          # sync point
+            res = jax.block_until_ready(run(
+                steps, medium, geo, spectra,
+                jnp.asarray([0, 4 + r], jnp.uint32)))
+        total_r = float(res.n_generated)
         dt = (time.perf_counter() - t0) / reps
         throughput[nd] = total_r / dt
         print(f"# {nd} devices: {throughput[nd]:.3e} photons/s "
@@ -75,22 +73,17 @@ def main():
 
     base = throughput[sizes[0]] / sizes[0]
     eff = {n: throughput[n] / (n * base) for n in sizes}
-    virtual = "--real" not in sys.argv
-
-    # analytic ICI-collective cost model (round-2 review Weak #10: estimate
-    # what CAN be estimated without multi-chip hardware).  The sharded
-    # program's only collective is the final histogram psum: a reduce-
-    # scatter + all-gather moves ~2 * (D-1)/D * hist_bytes per chip over
-    # ICI.  Per propagate() call the device computes for ~compute_s; the
-    # collective adds hist_bytes / ICI_BW, so predicted efficiency is
-    # compute / (compute + comm).  v5e ICI ~ 4.5e10 B/s per link
-    # (1600 Gbps aggregate over 4 links, public v5e specs).
+    # analytic collective model: the sharded program's only collective is
+    # the final histogram psum, a reduce-scatter + all-gather that moves
+    # ~2 * (D-1)/D * hist_bytes per device; predicted efficiency is
+    # compute / (compute + comm) at the link rate (NVLink on H100:
+    # 450 GB/s each way, NVIDIA's data sheet)
     hist_bytes = float(geo.n_doms * cfg.hist_n_bins * 4)
-    ici_bw = float(os.environ.get("SCALING_ICI_BW", 4.5e10))
+    link_bw = float(os.environ.get("SCALING_LINK_BW", 4.5e11))
     compute_s = dt
     analytic = {}
-    for ndev in (2, 4, 8, 16, 64, 256):
-        comm_s = 2.0 * (ndev - 1) / ndev * hist_bytes / ici_bw
+    for ndev in (2, 4, 8):
+        comm_s = 2.0 * (ndev - 1) / ndev * hist_bytes / link_bw
         analytic[ndev] = compute_s / (compute_s + comm_s)
     print(f"# analytic psum model: hist={hist_bytes/1e6:.2f} MB, "
           f"step compute ~{compute_s*1e3:.0f} ms -> predicted efficiency "
@@ -102,15 +95,7 @@ def main():
         "efficiency_vs_1dev": eff,
         "value": eff[sizes[-1]],
         "unit": "fraction",
-        "vs_baseline": eff[sizes[-1]] / 0.9,
-        # virtual CPU devices SHARE the host's cores: per-device throughput
-        # cannot scale and the efficiency number is meaningless -- the
-        # virtual run validates the sharded program + harness only.  Run
-        # with --real on actual chips for the BASELINE >=90% measurement.
-        "virtual_devices": virtual,
-        # analytic single-collective model (see stderr note): the >=90%
-        # BASELINE row is comfortably met by construction -- the histogram
-        # psum is the program's only cross-chip traffic
+        "device": device_summary(),
         "analytic_psum_efficiency": analytic,
     }))
 

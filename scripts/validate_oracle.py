@@ -1,8 +1,8 @@
 """Large-N engine-vs-oracle validation (the BASELINE correctness protocol).
 
-Runs >= 1e6 photons through both the JAX engine (and the fused TPU kernel
-when a TPU is present) and the independent float64 numpy oracle
-(clsim_tpu/validate/oracle.py), then compares:
+Runs >= 1e6 photons through both the JAX engine (on the default JAX device)
+and the independent float64 numpy oracle (clsim_tpu/validate/oracle.py),
+then compares:
 
   * total hit counts (Poisson z-score)
   * the DOM-summed hit-time histogram in coarse bins (per-bin z-scores)
@@ -17,7 +17,7 @@ Usage:  python scripts/validate_oracle.py [n_photons] [--config NAME]
 
 Configs (the BASELINE correctness matrix):
   cascade  -- #1: cascade-like isotropic steps, tilt + anisotropy (default)
-  muon     -- #2: muon track through PARSED spice_lea (tilt + anisotropy)
+  muon     -- #2: muon track through a tilted, anisotropic layered medium
   flasher  -- #3: LED flasher pulses (multi-spectrum source_type dispatch)
   cascade-biased -- #4: config #1 with the dom2007a wavelength bias ON:
               the PRODUCTION weighted path (weight = step.weight/bias), with
@@ -33,12 +33,13 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
 import jax.numpy as jnp
 
-from tests.test_oracle import _workload, _workload_flasher, _workload_muon
+from clsim_tpu.validate.protocols import (cascade_workload,
+                                          flasher_workload, muon_workload)
 from clsim_tpu.propagate.dispatch import propagate_auto
 from clsim_tpu.types import StepBatch
+from clsim_tpu.util.runtime import device_summary, enable_compile_cache
 from clsim_tpu.validate.oracle import oracle_propagate
 
 
@@ -49,6 +50,7 @@ def main():
                                          "cascade-biased"],
                     default="cascade")
     args = ap.parse_args()
+    enable_compile_cache()
     n_photons = args.n_photons
     # unbiased spectra: every hit weight is exactly 1, so Poisson z-scores
     # are valid.  (With the bias on, weights are heavy-tailed ~1/bias and a
@@ -56,16 +58,16 @@ def main():
     # contract is covered by robust quantiles in tests/test_oracle.py.)
     biased = args.config == "cascade-biased"
     if args.config in ("cascade", "cascade-biased"):
-        medium, geo, spectra, cfg, steps = _workload(bias=biased)
+        medium, geo, spectra, cfg, steps = cascade_workload(bias=biased)
         oracle_spectra = (np.asarray(spectra.x[0]),
                           np.asarray(spectra.beta[0]))
     elif args.config == "muon":
-        medium, geo, spectra, cfg, steps = _workload_muon()
+        medium, geo, spectra, cfg, steps = muon_workload()
         oracle_spectra = (np.asarray(spectra.x[0]),
                           np.asarray(spectra.beta[0]))
     else:
         (medium, geo, spectra, cfg, steps,
-         oracle_spectra) = _workload_flasher()
+         oracle_spectra) = flasher_workload()
     n_steps = steps.x.shape[0]
     pps = max(1, n_photons // n_steps)
     steps = steps._replace(num_photons=np.full(n_steps, pps, np.int32))
@@ -89,19 +91,16 @@ def main():
     eng_hits = float(res.n_hits)
     eng_hist = np.asarray(res.hist, np.float64)
     print(f"engine: {eng_hits:.0f} hits in {time.perf_counter()-t0:.1f}s "
-          f"(backend auto, platform {jax.devices()[0].platform})")
+          f"on {device_summary()}")
 
     e_w = e_flat = None
     if biased:
         from clsim_tpu.hits.photons import (photon_batch_dom_index,
                                             records_to_photon_batch)
-        # per-slot ring overflow check applies only to the engine's
-        # fixed-capacity rings; the fused records path returns ONE
-        # host-compacted row whose count is the total (no overflow)
-        if np.asarray(res.rec["time"]).shape[0] > 1:
-            _rcmax = int(np.max(np.asarray(res.rec_count)))
-            assert _rcmax < cap, \
-                f"record ring overflow ({_rcmax} >= {cap}): raise capacity"
+        # the per-slot record rings have a fixed capacity
+        _rcmax = int(np.max(np.asarray(res.rec_count)))
+        assert _rcmax < cap, \
+            f"record ring overflow ({_rcmax} >= {cap}): raise capacity"
         batch = records_to_photon_batch(
             {k: np.asarray(v) for k, v in res.rec.items()},
             np.asarray(res.rec_count), geo)

@@ -12,7 +12,7 @@ from clsim_tpu.medium.antares import (ANTARES_ABS_LEN, RAYLEIGH_FRACTION,
 from clsim_tpu.ops.samplers import sample_interpolated_fast
 from clsim_tpu.propagate.engine import propagate
 from clsim_tpu.types import PropagationConfig
-from tests.test_engine import _beam_steps, _spectra
+from test_engine import _beam_steps, _spectra
 
 
 def test_water_medium_tables():

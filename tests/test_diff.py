@@ -1,8 +1,8 @@
-"""Differentiable fast path tests: propagate_expected_diff's primal must
-match the engine's expected estimator on the shared uniform stream, and its
-gradients must match both engine AD and finite differences of the FUSED
-forward (proving primal/gradient consistency, the BASELINE gradient
-contract)."""
+"""Gradient tests of the engine's differentiable path (expected estimator,
+bounded reverse-differentiable loop): engine AD against finite differences
+of the same forward on the same key (primal/gradient consistency, the
+BASELINE gradient contract), and the score-function correction for
+scattering parameters."""
 
 import dataclasses
 
@@ -12,12 +12,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from clsim_tpu.geometry import build_geometry, hexagonal_geometry
+from clsim_tpu.geometry import hexagonal_geometry
 from clsim_tpu.medium.functions import DEFAULT_ICE_REF_INDEX
 from clsim_tpu.medium.properties import make_homogeneous_ice
 from clsim_tpu.ops.spectrum import make_cherenkov_spectrum, stack_spectra
-from clsim_tpu.propagate.diff import (make_uniform_stream,
-                                      propagate_expected_diff)
 from clsim_tpu.propagate.engine import propagate
 from clsim_tpu.types import PropagationConfig, StepBatch
 
@@ -59,59 +57,30 @@ def _setup():
     return medium, geo, spectra, cfg, steps
 
 
-def test_diff_primal_matches_engine():
-    medium, geo, spectra, cfg, steps = _setup()
-    key = jnp.asarray([0, 9], jnp.uint32)
-    hist_f = propagate_expected_diff(steps, medium, geo, spectra, key, cfg,
-                                     n_iterations=T, interpret=True)
-    uniforms = make_uniform_stream(key, T, N)
-    res_e = propagate(steps, medium, geo, spectra, key, cfg,
-                      max_iterations=T, uniforms=uniforms)
-    he = np.asarray(res_e.hist, np.float64)
-    hf = np.asarray(hist_f, np.float64)
-    assert he.sum() > 1.0, "workload must deposit weight"
-    assert np.abs(he - hf).sum() <= 4e-3 * he.sum()
+def _hist(steps, medium, geo, spectra, key, cfg, n_iterations):
+    return propagate(steps, medium, geo, spectra, key, cfg,
+                     max_iterations=n_iterations).hist
 
 
 def test_diff_gradient_matches_engine_ad_and_fd():
     medium, geo, spectra, cfg, steps = _setup()
     key = jnp.asarray([0, 9], jnp.uint32)
-    uniforms = make_uniform_stream(key, T, N)
     # random fixed projection makes the scalar sensitive to shape, not just
     # the total
     proj = jnp.asarray(np.random.default_rng(2).random(
         (geo.n_doms, cfg.hist_n_bins)), jnp.float32)
 
-    def loss_fused(a_dust):
+    def loss(a_dust):
         m = medium._replace(a_dust400=jnp.full(4, a_dust, jnp.float32))
-        h = propagate_expected_diff(steps, m, geo, spectra, key, cfg,
-                                    n_iterations=T, interpret=True)
-        return jnp.sum(h * proj)
-
-    def loss_engine(a_dust):
-        m = medium._replace(a_dust400=jnp.full(4, a_dust, jnp.float32))
-        res = propagate(steps, m, geo, spectra, key, cfg,
-                        max_iterations=T, uniforms=uniforms)
-        return jnp.sum(res.hist * proj)
+        return jnp.sum(_hist(steps, m, geo, spectra, key, cfg, T) * proj)
 
     a0 = 0.01
-    g_fused = float(jax.grad(loss_fused)(jnp.float32(a0)))
-    g_engine = float(jax.grad(loss_engine)(jnp.float32(a0)))
-    # the custom_vjp backward IS the engine VJP on the same stream
-    assert g_fused == pytest.approx(g_engine, rel=1e-5)
+    g = float(jax.grad(loss)(jnp.float32(a0)))
     eps = 2e-4
-    fd = (float(loss_fused(jnp.float32(a0 + eps)))
-          - float(loss_fused(jnp.float32(a0 - eps)))) / (2 * eps)
-    assert g_fused == pytest.approx(fd, rel=0.02)
-    assert g_fused < 0.0   # more dust -> fewer weighted hits
-
-
-def test_diff_rejects_detect_estimator():
-    medium, geo, spectra, cfg, steps = _setup()
-    bad = dataclasses.replace(cfg, estimator="detect")
-    with pytest.raises(ValueError):
-        propagate_expected_diff(steps, medium, geo, spectra,
-                                jnp.asarray([0, 1], jnp.uint32), bad)
+    fd = (float(loss(jnp.float32(a0 + eps)))
+          - float(loss(jnp.float32(a0 - eps)))) / (2 * eps)
+    assert g == pytest.approx(fd, rel=0.02)
+    assert g < 0.0   # more dust -> fewer weighted hits
 
 
 def test_diff_scattering_gradient_bias_bounded():
@@ -128,9 +97,7 @@ def test_diff_scattering_gradient_bias_bounded():
 
     def loss(b400):
         m = medium._replace(b400=jnp.full(4, b400, jnp.float32))
-        h = propagate_expected_diff(steps, m, geo, spectra, key, cfg,
-                                    n_iterations=T, interpret=True)
-        return jnp.sum(h)
+        return jnp.sum(_hist(steps, m, geo, spectra, key, cfg, T))
 
     b0 = 0.03
     g_ad = float(jax.grad(loss)(jnp.float32(b0)))
@@ -157,9 +124,7 @@ def test_diff_scattering_gradient_bias_bounded():
 
     def loss_full(b400):
         m = medium._replace(b400=jnp.full(4, b400, jnp.float32))
-        h = propagate_expected_diff(steps, m, geo, spectra, key, cfg_full,
-                                    n_iterations=T, interpret=True)
-        return jnp.sum(h)
+        return jnp.sum(_hist(steps, m, geo, spectra, key, cfg_full, T))
 
     g_full = float(jax.grad(loss_full)(jnp.float32(b0)))
     assert np.isfinite(g_full), g_full
@@ -174,9 +139,7 @@ def test_diff_absorption_gradient_exact_under_detachment():
 
     def loss(abs_d):
         m = medium._replace(abs_D=jnp.float32(abs_d))
-        h = propagate_expected_diff(steps, m, geo, spectra, key, cfg,
-                                    n_iterations=T, interpret=True)
-        return jnp.sum(h)
+        return jnp.sum(_hist(steps, m, geo, spectra, key, cfg, T))
 
     d0 = float(medium.abs_D)
     g_ad = float(jax.grad(loss)(jnp.float32(d0)))
@@ -234,13 +197,7 @@ def test_score_function_recovers_scattering_gradient():
 
     def loss(b, c, key):
         m = medium._replace(b400=jnp.full(4, b, jnp.float32))
-        # full fit path: fused forward (interpret), engine-AD backward
-        # coherent beam: most lanes deposit in the same iteration, so the
-        # flush/queue capacities must cover it (drops would NaN-poison)
-        h = propagate_expected_diff(steps, m, geo, spectra, key, c,
-                                    n_iterations=Tb, interpret=True,
-                                    queue_rows=128, flush_rows=32)
-        return jnp.sum(h)
+        return jnp.sum(_hist(steps, m, geo, spectra, key, c, Tb))
 
     # eps = 2e-3 (10% of b0): FD variance scales ~1/eps and the secant was
     # measured flat between eps 1e-3 and 2e-3, so the larger eps buys
@@ -275,54 +232,9 @@ def test_score_function_keeps_absorption_gradient():
 
     def loss(ad, c):
         m = medium._replace(a_dust400=jnp.full(4, ad, jnp.float32))
-        h = propagate_expected_diff(steps, m, geo, spectra, key, c,
-                                    n_iterations=6, interpret=True,
-                                    queue_rows=128, flush_rows=32)
-        return jnp.sum(h)
+        return jnp.sum(_hist(steps, m, geo, spectra, key, c, 6))
 
     a0 = jnp.float32(0.005)
     g_plain = float(jax.grad(loss)(a0, cfg))
     g_score = float(jax.grad(loss)(a0, cfg_s))
     assert g_score == pytest.approx(g_plain, rel=1e-5)
-
-
-def test_diff_nan_poisons_on_dropped_deposits():
-    """Overflowing the fused kernel's per-flush compaction cap must surface
-    as a NaN-poisoned histogram, never silent weight loss (the coherent-
-    beam failure this round's parity debugging found: every lane deposits
-    in the same iteration)."""
-    medium, geo, spectra, cfg, steps = _beam_workload(n=1024)
-    key = jnp.asarray([0, 13], jnp.uint32)
-    # starved capacities: one flush row cannot hold a coherent beam
-    h = propagate_expected_diff(steps, medium, geo, spectra, key, cfg,
-                                n_iterations=6, interpret=True,
-                                queue_rows=2, flush_rows=1)
-    assert not np.isfinite(np.asarray(h)).all()
-    # adequate capacities: finite and matching the engine
-    h2 = propagate_expected_diff(steps, medium, geo, spectra, key, cfg,
-                                 n_iterations=6, interpret=True,
-                                 queue_rows=128, flush_rows=32)
-    assert np.isfinite(np.asarray(h2)).all()
-
-
-def test_diff_bwd_fraction_unbiased():
-    """The stochastic backward (bwd_fraction) yields a correctly-SCALED
-    unbiased gradient: on the beam workload the absorption gradient from a
-    half-slot backward must match the full backward within sampling noise
-    (an off-by-scale bug would show as a clean 2x)."""
-    medium, geo, spectra, cfg, steps = _beam_workload(n=4096)
-    key = jnp.asarray([0, 31], jnp.uint32)
-
-    def loss(ad, frac):
-        m = medium._replace(a_dust400=jnp.full(4, ad, jnp.float32))
-        h = propagate_expected_diff(steps, m, geo, spectra, key, cfg,
-                                    n_iterations=6, interpret=True,
-                                    queue_rows=128, flush_rows=32,
-                                    bwd_fraction=frac)
-        return jnp.sum(h)
-
-    a0 = jnp.float32(0.005)
-    g_full = float(jax.grad(loss)(a0, 1.0))
-    g_half = float(jax.grad(loss)(a0, 0.5))
-    assert g_full != 0.0
-    assert g_half == pytest.approx(g_full, rel=0.2), (g_half, g_full)

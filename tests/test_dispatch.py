@@ -1,14 +1,12 @@
-"""Backend dispatcher: engine fallback on CPU, fused gating reasons."""
+"""propagate_auto: the single entry point for an int seed or a key."""
 
 import numpy as np
-import pytest
 import jax.numpy as jnp
 
 from clsim_tpu.medium.functions import DEFAULT_ICE_REF_INDEX
 from clsim_tpu.medium.properties import make_homogeneous_ice
 from clsim_tpu.ops.spectrum import make_cherenkov_spectrum, stack_spectra
-from clsim_tpu.propagate.dispatch import (backend_reason, propagate_auto,
-                                          _pick_block_lanes)
+from clsim_tpu.propagate.dispatch import propagate_auto
 from clsim_tpu.geometry import build_geometry
 from clsim_tpu.types import PropagationConfig, StepBatch
 
@@ -31,99 +29,25 @@ def _setup(n=256):
     return medium, geo, spectra, steps
 
 
-def test_cpu_falls_back_to_engine():
-    medium, geo, spectra, steps = _setup()
-    cfg = PropagationConfig(n_slots=256)
-    assert backend_reason(medium, spectra, cfg, 256) is not None
-    res = propagate_auto(steps, medium, geo, spectra, 7, cfg)
-    assert float(res.n_generated) == 256 * 4
-    assert float(res.n_hits) > 0
-
-
-def test_fused_backend_raises_on_cpu():
-    medium, geo, spectra, steps = _setup()
-    cfg = PropagationConfig(n_slots=256)
-    with pytest.raises(ValueError, match="unsupported"):
-        propagate_auto(steps, medium, geo, spectra, 7, cfg, backend="fused")
-
-
 def test_engine_backend_accepts_key_and_seed():
     medium, geo, spectra, steps = _setup()
     cfg = PropagationConfig(n_slots=256)
-    a = propagate_auto(steps, medium, geo, spectra, 7, cfg, backend="engine")
+    a = propagate_auto(steps, medium, geo, spectra, 7, cfg)
     b = propagate_auto(steps, medium, geo, spectra,
-                       jnp.asarray([0, 7], jnp.uint32), cfg, backend="engine")
+                       jnp.asarray([0, 7], jnp.uint32), cfg)
     np.testing.assert_allclose(np.asarray(a.hist), np.asarray(b.hist))
 
 
-def test_pick_block_lanes():
-    assert _pick_block_lanes(262144) == 8192
-    assert _pick_block_lanes(1024 * 3) == 1024
-    assert _pick_block_lanes(100) is None
-
-
-def test_fused_diagnostics_surface_abandoned():
-    """A max_calls=1 fused run that cannot drain must surface abandoned>0
-    through propagate_auto -> PropagationResult.diagnostics and warn at the
-    API layer (round-2 review item: dispatch.py discarded the totals)."""
-    import warnings
-    from clsim_tpu.propagate.dispatch import check_diagnostics
-
-    medium, geo, spectra, steps = _setup(n=256)
-    cfg = PropagationConfig(n_slots=256, max_layer_steps=3)
-    rng = np.random.default_rng(5)
-    uniforms = rng.random((2, 8, 256)).astype(np.float32)
-    res = propagate_auto(steps, medium, geo, spectra, 7, cfg,
-                         backend="fused", interpret=True, max_calls=1,
-                         iters_per_call=2, flush_every=1, spawn_every=1,
-                         block_lanes=256, uniforms=uniforms)
-    diag = res.diagnostics
-    assert diag is not None
-    # 4 photons/slot but only 2 iterations (1 spawn each): at least 2
-    # photons per slot never ran -- the run must report them as abandoned
-    assert diag["abandoned"] > 0
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        check_diagnostics(res)
-    assert any("abandoned" in str(x.message) for x in w)
-    import pytest as _pytest
-    with _pytest.raises(RuntimeError, match="abandoned"):
-        check_diagnostics(res, raise_on_loss=True)
-
-
 def test_engine_path_has_no_diagnostics():
+    """The engine drains every slot, so there are no loss counters to
+    report: every photon is generated, and the result carries only the
+    histogram, the counters and the records."""
+    from clsim_tpu.propagate.engine import PropagationResult
     medium, geo, spectra, steps = _setup(n=256)
     cfg = PropagationConfig(n_slots=256)
-    res = propagate_auto(steps, medium, geo, spectra, 7, cfg,
-                         backend="engine")
-    assert res.diag_totals is None
-    assert res.diagnostics is None
-    from clsim_tpu.propagate.dispatch import check_diagnostics
-    assert check_diagnostics(res) is None
-
-
-def test_stats_records_loss_counters():
-    from clsim_tpu.util.stats import RunStatistics
-    st = RunStatistics()
-    st.record(100.0, 5.0, 4.0, 0.1, 0.2, n_dropped=3.0, n_abandoned=2.0)
-    d = st.as_dict()
-    assert d["TotalNumHitsDropped"] == 3.0
-    assert d["TotalNumPhotonsAbandoned"] == 2.0
-
-
-def test_seed_from_key_traced_and_host_agree():
-    """The host and traced branches of _seed_from_key must produce the
-    SAME seed for the same key (advisor round-4: the branches used
-    different mixing formulas, so jitted vs eager propagate_auto ran
-    different RNG streams), and the result must fit int32."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from clsim_tpu.propagate.dispatch import _seed_from_key
-
-    for k in ([0xdeadbeef, 0xffffffff], [0, 1], [0x7fffffff, 0x80000000]):
-        key = jnp.asarray(k, jnp.uint32)
-        host = _seed_from_key(np.asarray(key))
-        traced = int(jax.jit(_seed_from_key)(key))
-        assert host == traced, (k, host, traced)
-        assert 0 <= host < 2 ** 31
+    res = propagate_auto(steps, medium, geo, spectra, 7, cfg)
+    assert float(res.n_generated) == 256 * 4
+    assert float(res.n_hits) > 0
+    assert PropagationResult._fields == (
+        "hist", "n_generated", "n_hits", "weight_hits", "n_iterations",
+        "rec_count", "rec")

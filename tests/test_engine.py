@@ -54,6 +54,85 @@ def _one_dom_geometry(x=50.0, oversize=5.0):
     return build_geometry([1], [1], [x], [0.0], [0.0], oversize=oversize)
 
 
+def _shadow_geometry():
+    """Three strings nearly on the photon's line of flight: the two NEAREST
+    (ranks 1, 2) have DOMs only at z=+200 (pass the 2-D cull, can never be
+    hit at z~0), the 3rd-nearest has its DOM exactly in the photon's path.
+    The reference tests every culled string
+    (sparse_collision_kernel.c.cl:462-587); the top-K approximation must
+    use K>=3 here."""
+    return build_geometry([0, 1, 2], [0, 0, 0], [10.0, 20.0, 30.0],
+                          [0.3, 0.5, 0.8], [200.0, 200.0, 0.0],
+                          oversize=12.0)
+
+
+def _three_group_geometry():
+    """Wide main hex + dense DeepCore-style infill + sparse shallow veto
+    ring: three (z0, dz, n_doms) string groups."""
+    import math
+    sids, oids, xs, ys, zs = [], [], [], [], []
+
+    def add_string(si, px, py, z0, dz, nd):
+        for d in range(nd):
+            sids.append(si)
+            oids.append(d)
+            xs.append(px)
+            ys.append(py)
+            zs.append(z0 - d * dz)
+
+    pos = [(0.0, 0.0)] + [(150.0 * math.cos(a), 150.0 * math.sin(a))
+                          for a in np.linspace(0, 2 * np.pi, 7)[:-1]]
+    for si, (px, py) in enumerate(pos):
+        add_string(si, px, py, 80.0, 15.0, 12)
+    add_string(len(pos), 20.0, 15.0, 40.0, 7.0, 30)
+    for k in range(4):
+        a = k * np.pi / 2 + 0.4
+        add_string(len(pos) + 1 + k, 400.0 * math.cos(a),
+                   400.0 * math.sin(a), 60.0, 25.0, 6)
+    return build_geometry(sids, oids, xs, ys, zs, oversize=8.0)
+
+
+def _isotropic_steps(n, pos, photons_per_slot=8, seed=7):
+    rr = np.random.default_rng(seed)
+    costh = rr.uniform(-1, 1, n)
+    sinth = np.sqrt(1 - costh ** 2)
+    phi = rr.uniform(0, 2 * np.pi, n)
+    return StepBatch(
+        x=jnp.full(n, pos[0], jnp.float32), y=jnp.full(n, pos[1], jnp.float32),
+        z=jnp.full(n, pos[2], jnp.float32), t=jnp.zeros(n, jnp.float32),
+        dir_x=jnp.asarray(sinth * np.cos(phi), jnp.float32),
+        dir_y=jnp.asarray(sinth * np.sin(phi), jnp.float32),
+        dir_z=jnp.asarray(costh, jnp.float32),
+        length=jnp.zeros(n, jnp.float32), beta=jnp.ones(n, jnp.float32),
+        num_photons=jnp.full(n, photons_per_slot, jnp.int32),
+        weight=jnp.ones(n, jnp.float32),
+        identifier=jnp.zeros(n, jnp.int32),
+        source_type=jnp.ones(n, jnp.int32))
+
+
+def _collision_workload(name):
+    """(geometry, slot-assigned steps) for the culled-vs-bruteforce test."""
+    from clsim_tpu.geometry import hexagonal_geometry
+    from clsim_tpu.workloads import icecube86_geometry
+    if name == "single_string":
+        return (single_string_geometry(n_doms=24, spacing=17.0, x=12.0,
+                                       z_top=200.0, oversize=5.0),
+                _beam_steps(512, 32, direction=(0.05, 0.0, 0.99875),
+                            pos=(0.0, 0.0, -10.0), source_type=0))
+    if name == "hex":
+        return (hexagonal_geometry(n_rings=1, string_spacing=60.0,
+                                   doms_per_string=12, dom_spacing=15.0,
+                                   z_top=80.0, oversize=8.0),
+                _isotropic_steps(512, (7.0, -3.0, 11.0)))
+    if name == "ic86":
+        return (icecube86_geometry(oversize=5.0),
+                _isotropic_steps(512, (40.0, 20.0, -250.0), 16))
+    if name == "three_group":
+        return _three_group_geometry(), _isotropic_steps(512, (10.0, 5.0, 0.0))
+    # shadow: a pencil beam along +x at the third string's DOM
+    return _shadow_geometry(), _beam_steps(256, 4, direction=(1.0, 0.0, 0.0))
+
+
 CFG = PropagationConfig(n_slots=512, hist_t_min=0.0, hist_t_max=3200.0,
                         hist_n_bins=400)
 
@@ -205,24 +284,30 @@ class TestScattering:
         # scattered tail: some light arrives late
         assert hist[peak + 20:].sum() > 0.0
 
-    def test_culled_collision_matches_bruteforce(self):
+    @pytest.mark.parametrize("geometry", ["single_string", "hex", "ic86",
+                                          "three_group", "shadow"])
+    def test_culled_collision_matches_bruteforce(self, geometry):
         """The sparse culling pipeline (2D string cull -> top-K ranking ->
-        z-layer window) must find exactly the hits the O(N*D) oracle finds."""
+        per-string DOM slots) must find exactly the hits the O(N*D) oracle
+        finds, on uniform, non-uniform-z (DeepCore-like), multi-group and
+        shadowing geometries (K as advise_strings_per_photon recommends)."""
+        from clsim_tpu.geometry import advise_strings_per_photon
+        geo, steps = _collision_workload(geometry)
         medium = make_homogeneous_ice(b400=0.06, a_dust400=0.004)
-        geo = single_string_geometry(n_doms=24, spacing=17.0, x=12.0,
-                                     z_top=200.0, oversize=5.0)
         spectra = _spectra()
+        seg = 90.0
+        k, _ = advise_strings_per_photon(geo, seg, 2)
         hists = {}
         for mode in ["culled", "bruteforce"]:
-            cfg = PropagationConfig(n_slots=512, hist_t_min=0.0,
-                                    hist_t_max=3200.0, hist_n_bins=400,
-                                    collision_mode=mode)
-            steps = _beam_steps(cfg.n_slots, 32,
-                                direction=(0.05, 0.0, 0.99875),
-                                pos=(0.0, 0.0, -10.0), source_type=0)
+            cfg = PropagationConfig(n_slots=steps.x.shape[0],
+                                    hist_t_min=0.0, hist_t_max=3200.0,
+                                    hist_n_bins=400, collision_mode=mode,
+                                    max_segment_m=seg,
+                                    strings_per_photon=max(k, 2))
             res = propagate(steps, medium, geo, spectra,
                             jnp.asarray([0, 11], jnp.uint32), cfg)
             hists[mode] = np.asarray(res.hist)
+        assert hists["bruteforce"].sum() > 20
         np.testing.assert_allclose(hists["culled"], hists["bruteforce"])
 
     def test_photon_records_mode(self):
@@ -416,3 +501,162 @@ class TestPhotonHistory:
         for i, j in zip(si[:64], sj[:64]):
             seq = habs[i, j, :ns[i, j]]
             assert np.all(np.diff(seq) >= 0.0)
+
+
+def test_advise_strings_per_photon():
+    from clsim_tpu.geometry import advise_strings_per_photon, hexagonal_geometry
+    geo = _shadow_geometry()
+    rec, reason = advise_strings_per_photon(geo, 120.0, configured=2)
+    assert rec >= 3 and reason is not None
+    # homogeneous hex lattice: K=2 is fine, no warning
+    hex_geo = hexagonal_geometry(n_rings=2, doms_per_string=10,
+                                 dom_spacing=17.0, z_top=80.0)
+    rec2, reason2 = advise_strings_per_photon(hex_geo, 35.0, configured=2)
+    assert reason2 is None
+
+
+class TestEngineInvariants:
+    """Configurations the engine serves, each held to an invariant that
+    needs no second implementation."""
+
+    @pytest.mark.parametrize("photons_per_slot", [1, 8, 200])
+    def test_drains_every_photon(self, photons_per_slot):
+        """The while loop runs until every slot is empty: every photon of
+        every slot is generated, whatever the per-slot depth (nothing is
+        dropped or abandoned)."""
+        n = 128
+        medium = make_homogeneous_ice(b400=0.05, a_dust400=0.02)
+        geo = single_string_geometry(n_doms=24, spacing=17.0, x=12.0,
+                                     z_top=200.0, oversize=5.0)
+        steps = _beam_steps(n, photons_per_slot, source_type=0)
+        nph = np.asarray(steps.num_photons).copy()
+        nph[::3] = 0                       # empty slots drain immediately
+        steps = steps._replace(num_photons=jnp.asarray(nph))
+        res = propagate(steps, medium, geo, _spectra(),
+                        jnp.asarray([0, 5], jnp.uint32),
+                        PropagationConfig(n_slots=n))
+        assert float(res.n_generated) == float(nph.sum())
+        assert int(res.n_iterations) >= photons_per_slot
+        assert np.isfinite(np.asarray(res.hist)).all()
+
+    @pytest.mark.parametrize("save_all", [False, True])
+    def test_records_count_matches(self, save_all):
+        """Record rings count exactly what the counters count: one record
+        per hit, or with SAVE_ALL_PHOTONS one per absorbed photon (every
+        photon, with the detector out of reach)."""
+        medium = make_homogeneous_ice(b400=0.03, a_dust400=0.01)
+        x = 5000.0 if save_all else 30.0
+        geo = _one_dom_geometry(x=x, oversize=5.0)
+        cfg = PropagationConfig(n_slots=128, save_photons=True,
+                                save_all_photons=save_all,
+                                stop_on_detection=not save_all,
+                                photon_capacity_per_slot=64)
+        steps = _beam_steps(cfg.n_slots, 16)
+        res = propagate(steps, medium, geo, _spectra(),
+                        jnp.asarray([0, 6], jnp.uint32), cfg)
+        counts = np.asarray(res.rec_count)
+        target = float(res.n_generated) if save_all else float(res.n_hits)
+        assert target > 0
+        assert counts.sum() == target
+        assert counts.max() <= cfg.photon_capacity_per_slot
+
+    def test_flasher_multi_spectrum_dispatch(self):
+        """Stacked spectra: slots with source_type 1 draw from the LED
+        table (380-430 nm), source_type 0 from the Cherenkov spectrum."""
+        from clsim_tpu.ops.spectrum import make_tabulated_spectrum
+        cher = make_cherenkov_spectrum(DEFAULT_ICE_REF_INDEX, 265.0, 675.0)
+        wl = np.linspace(380.0, 430.0, 11)
+        led = make_tabulated_spectrum(
+            wl, np.exp(-0.5 * ((wl - 405.0) / 10.0) ** 2))
+        spectra = stack_spectra([cher, led])
+        n = 256
+        st = np.zeros(n, np.int32)
+        st[n // 2:] = 1
+        steps = _beam_steps(n, 8)._replace(source_type=jnp.asarray(st),
+                                           identifier=jnp.asarray(st))
+        cfg = PropagationConfig(n_slots=n, save_photons=True,
+                                save_all_photons=True,
+                                stop_on_detection=False,
+                                photon_capacity_per_slot=8)
+        res = propagate(steps, make_homogeneous_ice(b400=0.05, a_dust400=0.05),
+                        _one_dom_geometry(x=5000.0), spectra,
+                        jnp.asarray([0, 8], jnp.uint32), cfg)
+        counts = np.asarray(res.rec_count)
+        valid = np.arange(8)[None, :] < counts[:, None]
+        wlen = np.asarray(res.rec["wavelength"])[valid]
+        src = np.asarray(res.rec["identifier"])[valid]
+        assert (src == 1).sum() > 100 and (src == 0).sum() > 100
+        assert ((wlen[src == 1] >= 380.0) & (wlen[src == 1] <= 430.0)).all()
+        cw = wlen[src == 0]
+        assert cw.min() >= 265.0 and cw.max() <= 675.0
+        assert ((cw < 380.0) | (cw > 430.0)).mean() > 0.5
+
+    @pytest.mark.parametrize("kind", ["water", "photonics"])
+    def test_other_media_propagate(self, kind):
+        """Sea water (tabulated wavelength factors, Petzold/Rayleigh
+        scattering) and a photonics-format separable table drain, deposit
+        finite hits, and arrive after the straight-line light time."""
+        if kind == "water":
+            from clsim_tpu.medium.antares import make_antares_water
+            medium = make_antares_water()
+        else:
+            medium = _photonics_medium()
+        cher = make_cherenkov_spectrum(medium.ref_index,
+                                       float(medium.min_wlen),
+                                       float(medium.max_wlen))
+        # source_type 1: the beam keeps its direction (no Cherenkov cone)
+        spectra = stack_spectra([cher, cher])
+        d = 30.0
+        geo = _one_dom_geometry(x=d, oversize=5.0)
+        steps = _beam_steps(256, 16)
+        cfg = PropagationConfig(n_slots=256, hist_t_min=0.0,
+                                hist_t_max=3200.0, hist_n_bins=400)
+        res = propagate(steps, medium, geo, spectra,
+                        jnp.asarray([0, 9], jnp.uint32), cfg)
+        assert float(res.n_generated) == 256 * 16
+        assert float(res.n_hits) > 10
+        hist = np.asarray(res.hist)[0]
+        assert np.isfinite(hist).all()
+        first = np.nonzero(hist)[0][0]
+        t_min = (d - geo.collision_radius) / 0.3   # no faster than c
+        assert (first + 1) * cfg.hist_dt >= t_min
+
+    def test_nonuniform_bias_weights(self):
+        """A log-spaced wavelength-bias grid: each recorded weight is
+        step.weight / bias(wavelength), the bias linearly interpolated on
+        the non-uniform grid (np.interp on the recorded wavelength)."""
+        bx = np.geomspace(265.0, 675.0, 23)
+        by = 0.2 + 0.15 * np.sin(np.linspace(0, 5, 23)) ** 2
+        cher = make_cherenkov_spectrum(DEFAULT_ICE_REF_INDEX, 265.0, 675.0,
+                                       bias_wlen_nm=bx, bias_values=by)
+        spectra = stack_spectra([cher, cher])   # source_type 1: no cone
+        cfg = PropagationConfig(n_slots=256, save_photons=True,
+                                photon_capacity_per_slot=16)
+        res = propagate(_beam_steps(256, 16),
+                        make_homogeneous_ice(b400=1e-9, a_dust400=0.01),
+                        _one_dom_geometry(x=20.0, oversize=5.0), spectra,
+                        jnp.asarray([0, 10], jnp.uint32), cfg)
+        counts = np.asarray(res.rec_count)
+        valid = np.arange(16)[None, :] < counts[:, None]
+        w = np.asarray(res.rec["weight"])[valid]
+        wl = np.asarray(res.rec["wavelength"])[valid]
+        assert len(w) > 50
+        np.testing.assert_allclose(w, 1.0 / np.interp(wl, bx, by), rtol=1e-5)
+
+
+def _photonics_medium():
+    """A two-layer photonics-format table (MakeIceCubeMediumProperties-
+    Photonics.py input) with smooth wavelength dependence."""
+    from clsim_tpu.medium.photonics import parse_photonics_ice_table
+    nw, w0, dw = 16, 300.0, 20.0
+    wl = w0 + dw / 2 + dw * np.arange(nw)
+    lines = ["NLAYER 2", f"NWVL {nw} {w0} {dw}"]
+    for i, (a, b) in enumerate(((0.01, 0.03), (0.02, 0.05))):
+        lines.append(f"LAYER {-500.0 + 500.0 * i} {500.0 * i}")
+        lines.append("ABS " + " ".join(map(str, a * (wl / 400.0) ** -1.08)))
+        lines.append("SCAT " + " ".join(
+            map(str, b * 0.06 * (wl / 400.0) ** -0.9)))
+        lines.append("COS " + " ".join(["0.94"] * nw))
+        lines.append("N_GROUP " + " ".join(map(str, 1.36 + 10.0 / wl)))
+        lines.append("N_PHASE " + " ".join(map(str, 1.32 + 10.0 / wl)))
+    return parse_photonics_ice_table("\n".join(lines))

@@ -1,6 +1,6 @@
 """Golden-histogram regression tests (BASELINE configs #1-#3).
 
-The TPU analog of the reference's frozen-RNG PPC comparison
+The analog of the reference's frozen-RNG PPC comparison
 (resources/scripts/compareToPPCredux/, SURVEY.md section 4.3): pinned-seed
 workloads whose per-DOM hit-time histograms must stay within 0.1% L1 of the
 committed goldens.  Regenerate with scripts/make_golden.py only for

@@ -15,7 +15,7 @@ from clsim_tpu.parallel.mesh import (IceFit, make_mesh, make_sharded_propagate,
                                      shard_steps)
 from clsim_tpu.propagate.engine import propagate
 from clsim_tpu.types import PropagationConfig
-from tests.test_engine import _beam_steps, _one_dom_geometry, _spectra
+from test_engine import _beam_steps, _one_dom_geometry, _spectra
 
 
 @pytest.fixture(scope="module")
@@ -160,8 +160,7 @@ def test_bootstrap_single_process_noop(monkeypatch):
     """initialize_distributed is a harmless no-op outside a cluster; the
     per-process step slice covers the global batch exactly once."""
     from clsim_tpu.parallel import bootstrap
-    for v in ("COORDINATOR_ADDRESS", "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE",
-              "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS"):
+    for v in ("COORDINATOR_ADDRESS", "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE"):
         monkeypatch.delenv(v, raising=False)
     assert bootstrap.initialize_distributed() is False
     sl = bootstrap.process_step_slice(1024)
@@ -178,8 +177,8 @@ def test_bootstrap_single_process_noop(monkeypatch):
 
 
 def test_import_does_not_initialize_backend():
-    """`import clsim_tpu` must not touch the XLA backend: on a real pod,
-    jax.distributed.initialize has to run BEFORE any backend-initializing
+    """`import clsim_tpu` must not touch the XLA backend: on a multi-host
+    cluster, jax.distributed.initialize has to run BEFORE any backend-initializing
     call, so module-scope device arrays anywhere in the package would make
     multi-host bootstrap impossible (found via the 2-process test below:
     DEFAULT_ICE_REF_INDEX used to be a module-scope jnp array)."""
@@ -217,8 +216,7 @@ def test_bootstrap_two_process_psum(tmp_path):
 
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)  # workers set their own device counts
-    for v in ("COORDINATOR_ADDRESS", "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE",
-              "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS"):
+    for v in ("COORDINATOR_ADDRESS", "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE"):
         env.pop(v, None)  # the truth run must take the single-process branch
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
@@ -246,118 +244,22 @@ def test_bootstrap_two_process_psum(tmp_path):
     np.testing.assert_allclose(d["hist"], t["hist"], rtol=1e-5, atol=1e-6)
 
 
-def test_sharded_fused_matches_engine_shared_stream(mesh):
-    """The sharded production path serves the FUSED kernel (round-3 review
-    item 2): 8 shards each run the fused Pallas kernel (interpret mode) on
-    their slot slice consuming the SAME uniform stream the unsharded engine
-    consumes, and the psum'd histogram must match the engine's to fetch
-    rounding (the scale-out analogue of the reference serving its compiled
-    OpenCL converters through I3CLSimServer, I3CLSimServer.cxx:163-370)."""
-    import dataclasses
-
-    from clsim_tpu.propagate import kernel as FK
-    from tests.test_kernel import (N, T, _run_engine_with_uniforms,
-                                   _workload)
-
-    medium, geo, spectra, cfg, steps, uniforms = _workload()
-    _, acc_e = _run_engine_with_uniforms(steps, medium, geo, spectra, cfg,
-                                         uniforms)
-
-    cfg_s = dataclasses.replace(cfg, n_slots=N // 8)
-    run = make_sharded_propagate(
-        mesh, cfg_s, backend="fused", medium=medium, geo=geo,
-        spectra=spectra, interpret=True, with_uniforms=True,
-        iters_per_call=T, flush_every=1, queue_rows=32)
-    assert run.backend == "fused"
-    res = run(shard_steps(steps, mesh), medium, geo, spectra,
-              jnp.asarray([0, 1], jnp.uint32),
-              run.layout_uniforms(uniforms))
-
-    he = np.asarray(acc_e.hist, np.float64)
-    hk = np.asarray(res.hist, np.float64).reshape(-1)
-    assert float(res.n_generated) == float(acc_e.n_generated)
-    nh_e, nh_k = float(acc_e.n_hits), float(res.n_hits)
-    assert abs(nh_e - nh_k) <= max(2.0, 0.01 * nh_e), (nh_e, nh_k)
-    assert nh_e > 20, "workload produced too few hits to be meaningful"
-    l1 = np.abs(he - hk).sum()
-    assert l1 <= 2e-3 * he.sum() + 1e-6, (l1, he.sum())
-    totals = np.asarray(res.diag_totals, np.float64)
-    assert totals[FK.CNT_DROPPED] == 0.0
-
-
-def test_api_simulation_mesh_serves_fused(mesh):
-    """The product entry point `Simulation(mesh=...)` serves the FUSED
-    kernel when the configuration supports it (round-4 review Weak #2 /
-    Next #1): medium/geo/spectra are passed through at build time so
-    `make_sharded_propagate` can select the fused path, exactly as the
-    reference's scale-out serves the compiled OpenCL converters
-    (I3CLSimServer.cxx:163-370).  On CPU without interpret mode the same
-    entry point records WHY it fell back."""
+def test_api_simulation_mesh_serves_engine(mesh):
+    """`Simulation(mesh=...)` shards the slot batch over the mesh and psums
+    the result: every photon of the particles' steps is generated, as in
+    the unsharded Simulation on the same particles."""
     from clsim_tpu.api import Simulation
+    from clsim_tpu.sources import Particle, ParticleType
     medium = make_homogeneous_ice(b400=0.04, a_dust400=0.006)
     geo = single_string_geometry(n_doms=8, spacing=17.0, x=20.0,
                                  z_top=60.0, oversize=5.0)
-    cfg = PropagationConfig(n_slots=128)
-    sim = Simulation(medium=medium, geometry=geo, config=cfg, mesh=mesh,
-                     interpret=True)
-    assert sim._propagate.backend == "fused"
-    assert sim._propagate.backend_reason is None
-    sim_e = Simulation(medium=medium, geometry=geo, config=cfg, mesh=mesh)
-    assert sim_e._propagate.backend == "engine"
-    assert "TPU" in sim_e._propagate.backend_reason
-
-
-def test_api_simulation_mesh_fused_parity(mesh):
-    """The sharded fused propagate CONSTRUCTED BY `Simulation(mesh=...)`
-    (the product wiring: config/medium/geo passed through __init__) must
-    match the engine's histograms on a shared uniform stream -- the
-    histogram-parity check the round-4 review asked for on the product
-    path.  Uniform-parity mode because the fused kernel's hardware PRNG
-    (pltpu.prng_seed) has no CPU interpret lowering."""
-    import dataclasses
-
-    from clsim_tpu.api import Simulation
-    from clsim_tpu.propagate import kernel as FK
-    from tests.test_kernel import (N, T, _run_engine_with_uniforms,
-                                   _workload)
-
-    medium, geo, _, cfg, steps, uniforms = _workload()
-    cfg_s = dataclasses.replace(cfg, n_slots=N // 8)
-    sim = Simulation(medium=medium, geometry=geo, config=cfg_s, mesh=mesh,
-                     interpret=True, unweighted_photons=True,
-                     fused_opts=dict(with_uniforms=True, iters_per_call=T,
-                                     flush_every=1, queue_rows=32))
-    run = sim._propagate
-    assert run.backend == "fused"
-    spectra = sim.spectra  # the spectra the product wiring built
-
-    _, acc_e = _run_engine_with_uniforms(steps, medium, geo, spectra, cfg,
-                                         uniforms)
-    res = run(shard_steps(steps, mesh), medium, geo, spectra,
-              jnp.asarray([0, 1], jnp.uint32), run.layout_uniforms(uniforms))
-
-    he = np.asarray(acc_e.hist, np.float64)
-    hk = np.asarray(res.hist, np.float64).reshape(-1)
-    assert float(res.n_generated) == float(acc_e.n_generated)
-    nh_e, nh_k = float(acc_e.n_hits), float(res.n_hits)
-    assert abs(nh_e - nh_k) <= max(2.0, 0.01 * nh_e), (nh_e, nh_k)
-    assert nh_e > 20, "workload produced too few hits to be meaningful"
-    l1 = np.abs(he - hk).sum()
-    assert l1 <= 2e-3 * he.sum() + 1e-6, (l1, he.sum())
-    totals = np.asarray(res.diag_totals, np.float64)
-    assert totals[FK.CNT_DROPPED] == 0.0
-
-
-def test_sharded_auto_backend_reports_fallback(mesh):
-    """backend='auto' without build-time geometry serves the engine and says
-    so; with geometry on CPU (no TPU, no interpret) it also falls back."""
-    medium = make_homogeneous_ice(b400=0.05, a_dust400=0.01)
-    geo = _one_dom_geometry(x=40.0, oversize=5.0)
-    spectra = _spectra()
-    cfg = PropagationConfig(n_slots=128)
-    run = make_sharded_propagate(mesh, cfg)
-    assert run.backend == "engine"
-    run2 = make_sharded_propagate(mesh, cfg, medium=medium, geo=geo,
-                                  spectra=spectra)
-    assert run2.backend == "engine"
-    assert "TPU" in run2.backend_reason
+    cfg = PropagationConfig(n_slots=64)
+    cascade = Particle.cascade(ParticleType.EMinus, (0.0, 0.0, 0.0), 0.0,
+                               20.0, 1.2, 0.3)
+    out = {}
+    for label, m in (("mesh", mesh), ("single", None)):
+        sim = Simulation(medium=medium, geometry=geo, config=cfg, mesh=m)
+        res = sim.simulate([cascade], seed=3)
+        out[label] = float(res.n_generated)
+        assert np.isfinite(np.asarray(res.hist)).all()
+    assert out["mesh"] == out["single"] > 0

@@ -10,7 +10,7 @@ from clsim_tpu.tabulator import (Axis, SphericalAxes, default_spherical_axes,
                                  make_reference_source, save_table_npz,
                                  tabulate)
 from clsim_tpu.types import PropagationConfig
-from tests.test_engine import _beam_steps, _spectra
+from test_engine import _beam_steps, _spectra
 
 
 def test_axis_semantics():
